@@ -23,8 +23,24 @@ which passes or exits nonzero:
    kernel's launch count must equal the setups + substeps run, and one
    coupled step through the kernel must agree with one through the plain
    chain (<= 1e-3 of each field's scale, f32);
-5. output: nvidia-smi's name/power line, a JSON line with the kernel
-   table, and last {"ok": true, "device": {...}}.
+5. runner: the bench case through runtime.runner.Simulation, 6 steps
+   with 4 probes, a diagnostics log every step and one write(); a
+   checkpoint after step 3 resumed by a fresh Simulation and run to
+   step 6 must agree with the straight run (<= 1e-4 of each field's
+   scale; the particle-to-grid scatter sums in a fixed order, so it is
+   bitwise in practice); finite, nbr_dropped 0, launches = setups +
+   substeps; the runner's timing split;
+6. inject: the injection column at jetFlow's capacity (65,536;
+   sedifoam_tpu_torch/cases.py), 40 steps windowed and 40 at full
+   capacity: the window must grow at least twice, the kernel must run
+   at >= 3 distinct N, and the two runs must agree by tag (pos, vel,
+   omega; <= 1e-5 of scale); host syncs per step in torch's sync debug
+   mode;
+7. dense: xiaocase3 (dense backend, f64) for 25 steps through
+   Simulation, inside the reference test's bounds;
+8. output: nvidia-smi's name/power line, a JSON line with the kernel
+   table (launches summed over the main path, runner and inject), and
+   last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one card; builds into build/kernels/.
 """
@@ -34,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -42,6 +59,9 @@ N_TIMED = 10
 N_SPLIT = 3
 KERNEL_SUBSTEPS = 20
 ALPHA_ROUNDOFF = 1e-6
+RUNNER_STEPS = 6          # a checkpoint after RUNNER_STEPS // 2
+INJECT_STEPS = 40
+DENSE_STEPS = 25
 
 
 def fail(msg):
@@ -76,6 +96,49 @@ def tree_leaves(obj, prefix=""):
     elif hasattr(obj, "_asdict"):
         for k, v in obj._asdict().items():
             yield from tree_leaves(v, f"{prefix}.{k}" if prefix else k)
+
+
+def count_syncs(fn):
+    """Host syncs made by fn(), as torch's sync debug mode reports them."""
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def compare_states(a, b):
+    """(worst rel_err, field) over the floating fields of two SimStates.
+    The solid-phase velocity Ua = (smoothed sum of vol*U) / alpha is
+    ill-conditioned where alpha is at round-off level (no particles), and
+    so are its previous-step copy and the solid fluxes phia built from
+    it: alpha*Ua is compared instead, and the mixture flux phi carries
+    phia where it matters."""
+    import torch
+    skip = {"fluid.Ua", "fluid.Ua_old"}
+    worst, where = 0.0, ""
+    pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+    pairs.append((("fluid.alpha*Ua", a.fluid.Uc), ("", b.fluid.Uc)))
+    for (name, x), (_, y) in pairs:
+        if name in skip or name.startswith("fluid.phia"):
+            continue
+        if x.is_floating_point() and bool(torch.any(x != 0)):
+            e = rel_err(x, y)
+            if e > worst:
+                worst, where = e, name
+    return worst, where
+
+
+def run_steps(sim, n, **kw):
+    """Run sim until its step counter reads n (the loop tests time, which
+    f32 accumulates with round-off: stop half a step early)."""
+    sim.run((n - 0.5) * sim.cfg.fluid.dt, **kw)
+    if int(sim.state.fluid.step) != n:
+        fail(f"runner stopped at step {int(sim.state.fluid.step)}, not {n}")
 
 
 def cuda_ms(fn, reps):
@@ -288,17 +351,9 @@ def phase_main_path(dev):
 
     # host syncs of one coupled step, as torch's sync debug mode reports
     # them (outside the counted and timed runs: same path, same count)
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            probe = step(tree_map(torch.clone, state))
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    n_sync = sum("synchroniz" in str(w.message) for w in seen)
+    n_sync = count_syncs(lambda: step(tree_map(torch.clone, state)))
     say(f"host syncs in one coupled step: {n_sync} (torch sync debug mode;"
         f" {cfg.cloud.sub_steps} Verlet rebuild tests + PCG stop tests)")
-    del probe
     expected = 1 + n_steps * cfg.cloud.sub_cycles * sub
     say(f"contact_chain launches: {launches} (1 setup + {n_steps} steps x "
         f"{sub} substeps = {expected})")
@@ -346,6 +401,234 @@ def phase_main_path(dev):
     return launches
 
 
+def bench_probes(cfg):
+    """Four probe points in the bed and above it."""
+    L = cfg.grid.lengths
+    return [(0.5 * L[0], 0.1 * L[1], 0.5 * L[2]),
+            (0.25 * L[0], 0.3 * L[1], 0.75 * L[2]),
+            (0.5 * L[0], 0.6 * L[1], 0.5 * L[2]),
+            (0.75 * L[0], 0.9 * L[1], 0.25 * L[2])]
+
+
+def check_finite(state, label):
+    """Every floating field finite; per-particle fields on active rows
+    only (an empty slot has radius 0, so its drag is 0/0, as in the
+    reference)."""
+    import torch
+    active = state.particles.active
+    for name, t in tree_leaves(state):
+        if not t.is_floating_point():
+            continue
+        if name.startswith("particles.") and t.ndim and \
+                t.shape[0] == active.shape[0]:
+            t = t[active]
+        if not bool(torch.isfinite(t).all()):
+            fail(f"{label}: state field {name} is not finite")
+
+
+def phase_runner(dev):
+    """The bench case through Simulation: probes, a log every step, one
+    write(), a checkpoint at the half-way step resumed by a fresh
+    Simulation, and the runner's own timing split."""
+    import torch
+    from sedifoam_tpu_torch import bench_case
+    from sedifoam_tpu_torch.dem import fused
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import CoupledStep
+    cfg = bench_case.build_config(**bench_case.FULL)
+    n = bench_case.FULL["n_particles"]
+    half = RUNNER_STEPS // 2
+    fluid, particles = bench_case.build_state(cfg, n, torch.float32, dev)
+    probes = bench_probes(cfg)
+
+    fused.LAUNCHES = 0
+    fused.LAUNCH_SIZES.clear()
+    state0 = CoupledStep(cfg, torch.float32, dev).initialize(fluid,
+                                                             particles)
+    setups = 1
+    sim = Simulation(cfg, state0, probe_locations=probes, device=dev)
+    run_steps(sim, half, log_every=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = sim.save_checkpoint(os.path.join(tmp, "ck.npz"))
+        t0 = time.perf_counter()
+        run_steps(sim, RUNNER_STEPS, log_every=1)
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        tdir = sim.write(tmp)
+        t_write = time.perf_counter() - t1
+        written = sorted(os.listdir(tdir))
+        sim2 = Simulation(cfg, state0, probe_locations=probes, device=dev)
+        sim2.resume(ckpt)
+        if int(sim2.state.fluid.step) != half:
+            fail(f"resumed at step {int(sim2.state.fluid.step)}, not {half}")
+        run_steps(sim2, RUNNER_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    launches = fused.LAUNCHES
+    expected = setups + (RUNNER_STEPS + RUNNER_STEPS - half) * \
+        cfg.cloud.sub_cycles * cfg.cloud.sub_steps
+    say(f"runner: {RUNNER_STEPS} steps with {len(probes)} probes, a log "
+        f"every step; steps {half + 1}-{RUNNER_STEPS} in {wall:.4f} s "
+        f"({wall / (RUNNER_STEPS - half) * 1e3:.3f} ms/step incl. probes "
+        f"and logs); write() {t_write:.3f} s: {', '.join(written)}")
+    say(f"runner diagnostics at step {RUNNER_STEPS}: "
+        + json.dumps(sim.log[-1]))
+    t_a, p_a = sim.probes.series("p")
+    t_b, p_b = sim2.probes.series("p")
+    if len(t_a) != RUNNER_STEPS or len(t_b) != RUNNER_STEPS:
+        fail(f"probe series of {len(t_a)} and {len(t_b)} samples")
+    worst, where = compare_states(sim.state, sim2.state)
+    import numpy as np
+    pe = float(np.abs(p_a - p_b).max() / max(np.abs(p_a).max(), 1e-300))
+    say(f"resume at step {half} vs straight run at step {RUNNER_STEPS}: "
+        f"worst {worst:.3e} ({where}), probe p {pe:.3e} (tol 1e-4)")
+    if worst > 1e-4 or pe > 1e-4:
+        fail("the resumed run disagrees with the straight run")
+    for s, label in ((sim.state, "runner"), (sim2.state, "resumed")):
+        check_finite(s, label)
+        if int(s.particles.nbr_dropped) != 0:
+            fail(f"{label}: neighbor audit dropped in-ring partners")
+    say(f"contact_chain launches: {launches} ({setups} setup + "
+        f"{2 * RUNNER_STEPS - half} steps x {cfg.cloud.sub_steps} "
+        f"substeps = {expected})")
+    if launches != expected:
+        fail(f"kernel launched {launches} times, expected {expected}")
+    split = sim.timing_split(n=2)          # launches after the count
+    say("runner timing_split (CUDA events, mean of 2): " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in split.items()))
+    from sedifoam_tpu_torch.runtime import diagnostics
+    t0 = time.perf_counter()
+    diagnostics.to_host(sim.diag_fn(sim.state))
+    say(f"one diagnostics log (compute + one copy to the host): "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    return launches
+
+
+def phase_inject(dev):
+    """The injection column at jetFlow's capacity, windowed and at full
+    capacity, compared by tag."""
+    import numpy as np
+    import torch
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.dem import fused, inject
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import CoupledStep
+    cfg, fluid, particles = cases.inject_case(**cases.INJECT_FULL,
+                                              dtype=torch.float32,
+                                              device=dev)
+    cap = cases.INJECT_FULL["capacity"]
+    sub = cfg.cloud.sub_cycles * cfg.cloud.sub_steps
+
+    fused.LAUNCHES = 0
+    fused.LAUNCH_SIZES.clear()
+    syncs0 = inject.SYNCS
+    state0 = CoupledStep(cfg, torch.float32, dev).initialize(fluid,
+                                                             particles)
+    win = Simulation(cfg, state0, device=dev)
+    if not win.windowed:
+        fail("the injection case did not switch the active window on")
+    sizes = [win.state.particles.n_capacity]
+
+    def track(s):
+        sizes.append(s.state.particles.n_capacity)
+
+    t0 = time.perf_counter()
+    run_steps(win, INJECT_STEPS, on_sample=track)
+    t_win = time.perf_counter() - t0
+    full = Simulation(cfg, state0, active_window=False, device=dev)
+    t0 = time.perf_counter()
+    run_steps(full, INJECT_STEPS)
+    t_full = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = fused.LAUNCHES
+    by_n = dict(sorted(fused.LAUNCH_SIZES.items()))
+    inject_syncs = inject.SYNCS - syncs0
+
+    windows = [w for i, w in enumerate(sizes) if i == 0 or w != sizes[i - 1]]
+    grows = len(windows) - 1
+    pw, pf = win.state.particles, full.state.particles
+    n_active = int(pw.active.sum())
+    n_sites = len(inject.seed_positions(cfg.grid, cfg.cloud.add_box,
+                                        cfg.cloud.reduce_number_factor))
+    max_tag = int(pw.tag[pw.active].max())
+    n_adds, rest = divmod(max_tag - 1, n_sites)
+    say(f"inject: capacity {cap}, {n_sites} sites per add, {n_adds} adds "
+        f"in {INJECT_STEPS} steps; windows {windows} ({grows} grows); "
+        f"active {n_active}; windowed {t_win:.3f} s, full capacity "
+        f"{t_full:.3f} s")
+    say(f"contact_chain launches by N: {by_n}")
+    if rest != 0:
+        fail(f"max tag {max_tag} is not 1 + adds x {n_sites}")
+    if grows < 2:
+        fail(f"the window grew {grows} times (need >= 2)")
+    if len(by_n) < 3:
+        fail(f"the kernel ran at {len(by_n)} distinct N (need >= 3)")
+    expected = 1 + 2 * (n_adds + INJECT_STEPS * sub)
+    say(f"contact_chain launches: {launches} (1 setup + 2 runs x "
+        f"({n_adds} add setups + {INJECT_STEPS} steps x {sub} substeps) "
+        f"= {expected})")
+    if launches != expected:
+        fail(f"kernel launched {launches} times, expected {expected}")
+
+    aw, af = pw.active, pf.active
+    tw, tf = pw.tag[aw], pf.tag[af]
+    ow, of = torch.argsort(tw), torch.argsort(tf)
+    if not torch.equal(tw[ow], tf[of]):
+        fail("windowed and full-capacity runs hold different tags")
+    errs = {name: rel_err(getattr(pf, name)[af][of],
+                          getattr(pw, name)[aw][ow])
+            for name in ("pos", "vel", "omega")}
+    say("windowed vs full capacity by tag: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + " (tol 1e-5)")
+    if max(errs.values()) > 1e-5:
+        fail("the windowed run disagrees with the full-capacity run")
+    for s, label in ((win.state, "windowed"), (full.state, "full")):
+        check_finite(s, label)
+
+    # host syncs of two more steps (a plain one, then an add): inside the
+    # coupled steps alone, and through the runner (which adds the loop's
+    # time test and the window check per visit)
+    st = tree_map(torch.clone, win.state)
+    in_step = count_syncs(lambda: win.step_fn(win.step_fn(st)))
+    per_visit = count_syncs(
+        lambda: win.run((INJECT_STEPS + 1.5) * cfg.fluid.dt))
+    say(f"host syncs with injection, per step (mean of a plain step and "
+        f"an add step; torch sync debug mode): {in_step / 2:.1f} in the "
+        f"coupled step, {per_visit / 2:.1f} per runner visit; "
+        f"inject.maybe_add_delete read {inject_syncs} flags in "
+        f"{2 * INJECT_STEPS} steps")
+    return launches, by_n
+
+
+def phase_dense(dev):
+    """xiaocase3 on the dense backend in f64 through Simulation."""
+    import torch
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.dem import fused
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import CoupledStep
+    cfg, fluid, particles = cases.xiaocase3(torch.float64, dev)
+    launches = fused.LAUNCHES
+    state = CoupledStep(cfg, torch.float64, dev).initialize(fluid,
+                                                            particles)
+    sim = Simulation(cfg, state, device=dev)
+    run_steps(sim, DENSE_STEPS)
+    st = sim.state
+    v = float(st.particles.vel[0, 1])
+    dy = abs(float(st.particles.pos[0, 1]) - 1.9e-3)
+    say(f"dense: xiaocase3 {DENSE_STEPS} steps x {cfg.cloud.sub_steps} "
+        f"substeps in {sim.wall_time:.3f} s; v_y {v:.6f} m/s "
+        f"(bounds 0.01-0.045), |dy| {dy:.3e} m")
+    if not 0.01 < v < 0.045:
+        fail(f"xiaocase3 v_y {v} outside (0.01, 0.045)")
+    if not (bool(torch.isfinite(st.fluid.p).all())
+            and bool(torch.isfinite(st.fluid.Ub).all())):
+        fail("xiaocase3 p or Ub is not finite")
+    if dy >= 5e-4:
+        fail(f"xiaocase3 particle moved {dy} m")
+    if fused.LAUNCHES != launches:
+        fail("the dense backend launched the binned kernel")
+
+
 def main():
     try:
         import torch
@@ -357,6 +640,10 @@ def main():
     phase_build()
     k = phase_kernel(dev)
     launches = phase_main_path(dev)
+    launches += phase_runner(dev)
+    inject_launches, by_n = phase_inject(dev)
+    launches += inject_launches
+    phase_dense(dev)
     say(smi)
     say(json.dumps({"kernels": [{
         "name": "contact_chain", "route": "cuda",

@@ -6,8 +6,8 @@ particle lattice.
 Full width: 131,072 particles at just-touching density (pitch 2.02 r),
 a 32x64x32 grid of 2 mm cells, K = 8 neighbor slots, max_per_bin 10,
 three plane walls, 10 DEM substeps per fluid step, ErgunWenYu drag,
-4-step diffusion smoothing, 2-corrector PISO. Only the binned backend is
-ported.
+4-step diffusion smoothing, 2-corrector PISO. backend="dense" gives
+bench.py's default all-pairs variant (small sizes only).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ FULL = dict(n_particles=131072, nx=32, ny=64, nz=32)
 
 
 def build_config(n_particles=131072, nx=32, ny=64, nz=32,
-                 sub_steps=10) -> SimConfig:
+                 sub_steps=10, backend="binned") -> SimConfig:
     dx = 2e-3
     grid = Grid(nx=nx, ny=ny, nz=nz, dx=dx, dy=dx, dz=dx)
     zg3 = bc.PatchBC(bc.ZERO_GRADIENT, (0.0, 0.0, 0.0))
@@ -63,7 +63,7 @@ def build_config(n_particles=131072, nx=32, ny=64, nz=32,
     r = 5e-4
     dem_cfg = DEMConfig(dt=dt / sub_steps, pair=pair, walls=walls,
                         gravity=(0.0, -9.81, 0.0),
-                        backend="binned", nbr_k=8, max_per_bin=10,
+                        backend=backend, nbr_k=8, max_per_bin=10,
                         cutoff=2 * r * 1.6, skin=0.6 * r,
                         audit_ring=2 * r + 0.6 * r,
                         domain_lo=(0.0, 0.0, 0.0), domain_hi=L)
@@ -89,7 +89,9 @@ def build_state(cfg: SimConfig, n_particles: int, dtype=torch.float32,
     particles = make_particles(pos=pos, radius=r, density=2500.0,
                                capacity=n_particles,
                                n_walls=len(cfg.dem.walls),
-                               neighbor_k=cfg.dem.nbr_k, dtype=dtype,
+                               neighbor_k=(cfg.dem.nbr_k
+                                           if cfg.dem.backend == "binned"
+                                           else None), dtype=dtype,
                                device=device)
     Ub = np.zeros((3,) + cfg.grid.shape)
     Ub[1] = 0.1

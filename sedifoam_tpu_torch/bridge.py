@@ -19,8 +19,8 @@ from sedifoam_tpu_torch.dem.state import ParticleState
 from sedifoam_tpu_torch.fluid.state import FluidState
 from sedifoam_tpu_torch.grid import FaceField
 
-# uint32 in the reference; torch keeps them as int64
-_KEY_FIELDS = ("rng_key", "dns_key")
+# PRNG keys: uint32 in the reference; torch keeps them as int64
+KEY_FIELDS = ("rng_key", "dns_key")
 
 
 def tree_to_numpy(obj):
@@ -84,7 +84,7 @@ def sim_state_to_numpy(state):
     """Either package's SimState -> nested numpy dict (keys as uint32)."""
     d = tree_to_numpy(state)
     for part in ("fluid", "particles"):
-        for k in _KEY_FIELDS:
+        for k in KEY_FIELDS:
             if k in d[part]:
                 d[part][k] = d[part][k].astype(np.uint32)
     return d

@@ -12,7 +12,10 @@ Per fluid step:
        - k == 0: particleToEulerianField -> (alpha, Ua)
   3. liftDragCoeffs.H: cap alpha, calcTcFields -> Asrc, lift coefficient
 
-Particle injection and the semi-implicit drag are not ported.
+With injection on, each subcycle first runs inject.maybe_add_delete. Its
+`lax.cond`s in the reference are Python branches here: whether an add
+fired and whether the delete box removed anyone are read from the device
+(inject.SYNCS counts these syncs). The semi-implicit drag is not ported.
 """
 
 from __future__ import annotations
@@ -68,10 +71,6 @@ def evolve(fluid: FluidState, particles: ParticleState,
            smoother=None) -> Tuple[FluidState, ParticleState, torch.Tensor]:
     """One full evolve(). Returns (fluid', particles', UfSmoothed).
     `smoother` is the prebuilt smoothing FastDiag (built when None)."""
-    if ccfg.add_particle > 0 or ccfg.delete_particle > 0:
-        raise NotImplementedError(
-            "CloudConfig.add_particle/delete_particle (injection) is not "
-            "ported")
     smooth = _smooth_fn(grid, ccfg, smoother)
     gamma = fluid.alpha
 
@@ -86,8 +85,34 @@ def evolve(fluid: FluidState, particles: ParticleState,
     curl_u = ops.curl(fluid.Ub, grid, bcs.Ub, t=fluid.time) \
         if ccfg.particle_lift else None
 
+    # static injection sites (findAddParticleCells analogue)
+    inject_on = ccfg.add_particle > 0 or ccfg.delete_particle > 0
+    if inject_on:
+        from sedifoam_tpu_torch.dem import inject as _inject
+        sites = torch.as_tensor(
+            _inject.seed_positions(grid, ccfg.add_box,
+                                   ccfg.reduce_number_factor),
+            dtype=particles.pos.dtype, device=particles.pos.device)
+
     alpha, Ua = fluid.alpha, fluid.Ua
     for k in range(ccfg.sub_cycles):
+        if inject_on:
+            particles_, tta, key, added, deleted = _inject.maybe_add_delete(
+                particles, particles.time_to_add, particles.rng_key,
+                sites, grid, ccfg, fcfg.dt)
+            particles = particles_._replace(time_to_add=tta, rng_key=key)
+            if added:
+                # newly added particles need a fresh neighbor table and
+                # forces (their reused slots carry stale rows)
+                particles = _dem.maybe_rebuild_neighbors(particles, dcfg,
+                                                         force=True)
+                particles = _dem.compute_forces(particles, dcfg,
+                                                shearupdate=False)
+            elif deleted:
+                # deletions alone need no rebuild, but stale partners
+                # must leave the table (tests/test_ghost_partner.py)
+                particles = _dem.scrub_deactivated(particles, dcfg)
+
         p_drag, p_dudt, particles = _forces.particle_forces(
             particles, uf_smoothed, uf_smoothed_old, grad_p, curl_u,
             fluid.DDtUb, grid, ccfg, fcfg, alpha, fluid.step,

@@ -1,10 +1,16 @@
 """Particle <-> grid transfer (port of ``sedifoam_tpu/coupling/transfer.py``).
 
 Everything is a gather (grid -> particle) or a scatter-add (particle ->
-grid, `index_add_`) keyed by the particle's host-cell flat index.
-Inactive particles scatter zero weight and gather from a clamped cell.
-On CUDA `index_add_` sums with atomics in a varying order, so results
-differ from run to run by round-off: compare by tolerance.
+grid) keyed by the particle's host-cell flat index. Inactive particles
+scatter zero weight and gather from a clamped cell.
+
+The scatter-add is `index_put_(accumulate=True)`, which sums duplicates
+in a fixed order on CUDA (indices sorted first). `index_add_` sums with
+float atomics in a varying order there: run-to-run round-off in alpha
+and Asrc that a packed bed amplifies to 3e-4 of the contact forces'
+scale within 6 coupled steps (H100), so two runs, or a run and its
+resume from a checkpoint, would not repeat. With the sorted sum a run
+repeats bit for bit on the card too (tests/test_torch_cuda.py).
 The semi-implicit drag fields (calc_omega_asrc_semi) are not ported.
 """
 
@@ -39,7 +45,7 @@ def cell_volume_at(cells, grid: Grid, like):
 def _segment_sum(w, cells, n_cells):
     out = torch.zeros((n_cells,) + tuple(w.shape[1:]), dtype=w.dtype,
                       device=w.device)
-    return out.index_add_(0, cells, w)
+    return out.index_put_((cells,), w, accumulate=True)
 
 
 def scatter_to_grid(values, cells, active, grid: Grid):

@@ -13,11 +13,13 @@ kernel (or raises); on a CPU tensor, and only there, it runs
 ``contact_chain_reference``, the plain PyTorch version of the same
 function (``neighbor.pair_forces_binned`` + ``walls.wall_forces``).
 ``LAUNCHES`` counts kernel launches, so a run can show that its main
-path went through the kernel.
+path went through the kernel; ``LAUNCH_SIZES`` counts them by particle
+count N (the runner's active window launches it at several N).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -32,8 +34,10 @@ from sedifoam_tpu_torch.dem.neighbor import pair_forces_binned
 from sedifoam_tpu_torch.dem.state import ParticleState
 from sedifoam_tpu_torch.dem.walls import wall_forces
 
-# kernel launches in this process (incremented once per launch)
+# kernel launches in this process (incremented once per launch), in all
+# and by N
 LAUNCHES = 0
+LAUNCH_SIZES = collections.Counter()
 
 MAX_WALLS = 6
 _BIG = 1e30
@@ -213,4 +217,5 @@ def _launch(state, params, dt, idx, shearupdate, periodic_len, walls):
         msg = lib.contact_chain_error_string(err).decode()
         raise RuntimeError(f"contact_chain kernel launch failed: {msg}")
     LAUNCHES += 1
+    LAUNCH_SIZES[n] += 1
     return force, torque, shear, wall_shear

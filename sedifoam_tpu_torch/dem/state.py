@@ -27,10 +27,11 @@ class ParticleState(NamedTuple):
     active: torch.Tensor     # (N,) bool
     force: torch.Tensor      # (N, 3) current total force (velocity-Verlet carry)
     torque: torch.Tensor     # (N, 3)
-    # binned backend: contact shear history (3, K, N) per neighbor slot
+    # contact shear history: dense backend (3, N, N) per ordered pair,
+    # binned backend (3, K, N) per neighbor slot
     shear: torch.Tensor
     wall_shear: torch.Tensor  # (3, W, N); W = number of wall fixes
-    nbr_idx: torch.Tensor       # (K, N) int32; == N means empty slot
+    nbr_idx: torch.Tensor       # (K, N) int32, == N empty; (0, N) when dense
     pos_at_build: torch.Tensor  # (N, 3) positions at last rebuild
     # fix fdrag state (fix_fluid_drag.cpp): constant fluid force over a
     # subcycle + per-substep added-mass bookkeeping
@@ -42,9 +43,9 @@ class ParticleState(NamedTuple):
     sum_delta_fb: torch.Tensor  # (N, 3)
     # velocity at the start of the fluid step (p.UOld())
     vel_fluid_old: torch.Tensor  # (N, 3)
-    # particle injection state (not ported: kept for the field mapping)
+    # particle injection state (dem/inject.py)
     time_to_add: torch.Tensor    # scalar countdown
-    rng_key: torch.Tensor        # (2,) int64 (uint32 in the reference)
+    rng_key: torch.Tensor        # (2,) int64 holding the reference's uint32
     # worst count of in-ring partners dropped by the K-nearest truncation
     # at any rebuild so far (LAMMPS "dangerous builds" analogue)
     nbr_dropped: torch.Tensor    # scalar int32
@@ -77,13 +78,10 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
                    dtype=torch.float64, device=None) -> ParticleState:
     """Build a ParticleState from numpy inputs, padded to capacity.
 
-    neighbor_k: K of the binned (K, N) table. The dense and lattice
-    backends (neighbor_k None) and rigid clumps (mol > 0) are not ported.
+    neighbor_k: K of the binned (K, N) table; None gives the dense
+    backend's shapes ((3, N, N) shear, an empty (0, N) table). The
+    lattice backend and rigid clumps (mol > 0) are not ported.
     """
-    if neighbor_k is None:
-        raise NotImplementedError(
-            "DEMConfig.backend: only the binned backend is ported; pass "
-            "neighbor_k")
     pos = np.asarray(pos, dtype=np.float64).reshape(-1, 3)
     n = pos.shape[0]
     capacity = capacity or n
@@ -131,9 +129,10 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
         active=torch.as_tensor(active, device=device),
         force=zeros(capacity, 3),
         torque=zeros(capacity, 3),
-        shear=zeros(3, neighbor_k, capacity),
+        shear=zeros(3, capacity if neighbor_k is None else neighbor_k,
+                    capacity),
         wall_shear=zeros(3, n_walls, capacity),
-        nbr_idx=torch.full((neighbor_k, capacity), capacity,
+        nbr_idx=torch.full((neighbor_k or 0, capacity), capacity,
                            dtype=torch.int32, device=device),
         pos_at_build=pad2(pos),
         fdrag=zeros(capacity, 3),

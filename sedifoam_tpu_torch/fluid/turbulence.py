@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from sedifoam_tpu_torch import ops
 from sedifoam_tpu_torch.config import FluidConfig
 from sedifoam_tpu_torch.fluid.state import FluidBCs, FluidState
 from sedifoam_tpu_torch.grid import Grid
@@ -19,6 +20,27 @@ def _require_laminar(cfg: FluidConfig):
         raise NotImplementedError(
             f"TurbulenceConfig.model={cfg.turbulence.model!r}: only "
             "'laminar' is ported")
+
+
+def reynolds_stress(fs: FluidState, grid: Grid, bcs: FluidBCs,
+                    cfg: FluidConfig):
+    """B = (2/3) k I - nuEff * twoSymm(grad(Ub)) — the Reynolds-stress
+    export of the reference (pEqn.H:100); k and nut are zero when
+    laminar.
+
+    Returns (6, nx, ny, nz): xx, xy, xz, yy, yz, zz.
+    """
+    _require_laminar(cfg)
+    g = ops.grad_vec(fs.Ub, grid, bcs.Ub)   # g[j, i] = dU_j/dx_i
+    nueff = cfg.nub + fs.nut
+    k = fs.k
+
+    def comp(i, j):
+        s = nueff * (g[i, j] + g[j, i])
+        return ((2.0 / 3.0) * k - s) if i == j else -s
+
+    return torch.stack([comp(0, 0), comp(0, 1), comp(0, 2),
+                        comp(1, 1), comp(1, 2), comp(2, 2)])
 
 
 def nu_eff(fs: FluidState, grid: Grid, cfg: FluidConfig):
