@@ -38,9 +38,25 @@ which passes or exits nonzero:
    mode;
 7. dense: xiaocase3 (dense backend, f64) for 25 steps through
    Simulation, inside the reference test's bounds;
-8. output: nvidia-smi's name/power line, a JSON line with the kernel
-   table (launches summed over the main path, runner and inject), and
-   last {"ok": true, "device": {...}}.
+8. case: the transport-bedload channel written as a case directory
+   (sedifoam_tpu_torch/cases.py) at its full 140x65x60 mesh with 6 bed
+   layers (6,072 particles, capacity 8,192, the layers pressed 2 um into
+   each other), loaded by io/case.load_case (binned, f32) with the
+   semi-implicit drag on: the loaded config is checked (periodic x/z,
+   frozen type 2, hooke_history, Ubar 0.8, kEqn, K = 16); 5 settling
+   steps without forcing, then 10 Ubar steps through Simulation; finite,
+   nbr_dropped 0, the frozen rows exactly still, no escapes, alpha in
+   range, the forcing positive, launches = setup + substeps; the kernel
+   against its plain version at this shape, and one coupled step through
+   the kernel against one through the plain chain (<= 1e-3 of scale);
+   ms/step, the phase split, host syncs, PCG/BiCGStab iterations and the
+   Ubar compensated sums' time;
+9. entry: Simulation.from_case on the written xiaocase3 (dense, f64, 5
+   steps) equal to cases.xiaocase3() run the same way, and
+   `python -m sedifoam_tpu_torch.run_case` on it with --device cuda;
+10. output: nvidia-smi's name/power line, a JSON line with the kernel
+   table (launches summed over the main path, runner, inject and case,
+   with the N and K it ran at), and last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one card; builds into build/kernels/.
 """
@@ -62,6 +78,10 @@ ALPHA_ROUNDOFF = 1e-6
 RUNNER_STEPS = 6          # a checkpoint after RUNNER_STEPS // 2
 INJECT_STEPS = 40
 DENSE_STEPS = 25
+CASE_SETTLE = 5           # steps without forcing (the validator's settle)
+CASE_STEPS = 10           # Ubar steps after them
+CASE_OVERLAP = 2e-6       # bed layers pressed together: contacts at once
+ENTRY_STEPS = 5
 
 
 def fail(msg):
@@ -115,11 +135,11 @@ def compare_states(a, b):
     """(worst rel_err, field) over the floating fields of two SimStates.
     The solid-phase velocity Ua = (smoothed sum of vol*U) / alpha is
     ill-conditioned where alpha is at round-off level (no particles), and
-    so are its previous-step copy and the solid fluxes phia built from
-    it: alpha*Ua is compared instead, and the mixture flux phi carries
-    phia where it matters."""
+    so are its previous-step copy, its material derivative DDtUa and the
+    solid fluxes phia built from it: alpha*Ua is compared instead, and
+    the mixture flux phi carries phia where it matters."""
     import torch
-    skip = {"fluid.Ua", "fluid.Ua_old"}
+    skip = {"fluid.Ua", "fluid.Ua_old", "fluid.DDtUa"}
     worst, where = 0.0, ""
     pairs = list(zip(tree_leaves(a), tree_leaves(b)))
     pairs.append((("fluid.alpha*Ua", a.fluid.Uc), ("", b.fluid.Uc)))
@@ -230,8 +250,10 @@ def kernel_case(dev):
     return cfg, p
 
 
-def compare_chain(label, p, cfg_dem, shearupdate, tol, timing=False):
-    """Kernel vs contact_chain_reference on clones of p."""
+def compare_chain(label, p, cfg_dem, shearupdate, tol, timing=False,
+                  may_be_zero=()):
+    """Kernel vs contact_chain_reference on clones of p. Every output
+    must carry contacts (nonzero) except those named in may_be_zero."""
     import torch
     from sedifoam_tpu_torch.dem import fused
     walls = cfg_dem.walls if fused.walls_fusible(cfg_dem.walls) else ()
@@ -249,6 +271,12 @@ def compare_chain(label, p, cfg_dem, shearupdate, tol, timing=False):
         if a is None:
             continue
         if not bool(torch.any(a != 0)):
+            if name in may_be_zero:
+                say(f"kernel vs plain [{label}]: {name} all zero in both: "
+                    f"{bool(torch.all(b == 0))}")
+                if bool(torch.any(b != 0)):
+                    fail(f"{label}: {name} is zero only in the plain chain")
+                continue
             fail(f"{label}: {name} is all zero: no contacts to compare")
         errs[name] = rel_err(a, b)
         abs_err = max(abs_err, float((a.double() - b.double()).abs().max()))
@@ -629,6 +657,216 @@ def phase_dense(dev):
         fail("the dense backend launched the binned kernel")
 
 
+def phase_case(dev):
+    """The transport-bedload channel loaded from its written case
+    directory at full width, through Simulation."""
+    import torch
+    from sedifoam_tpu_torch import cases, linsolve
+    from sedifoam_tpu_torch.config import ChannelForcing
+    from sedifoam_tpu_torch.dem import fused
+    from sedifoam_tpu_torch.fluid import piso
+    from sedifoam_tpu_torch.io.case import load_case
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import CoupledStep
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        case = cases.write_channel_case(os.path.join(tmp, "channel"),
+                                        **cases.CHANNEL_FULL,
+                                        overlap=CASE_OVERLAP)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg, fluid, particles, controls = load_case(
+            case, backend="binned", dtype=torch.float32, capacity=8192,
+            device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    cfg = dataclasses.replace(cfg, cloud=dataclasses.replace(
+        cfg.cloud, semi_implicit_drag=True))
+    n_cells = cfg.grid.n_cells
+    n0 = int(particles.active.sum())
+    K = particles.nbr_idx.shape[0]
+    full = cases.CHANNEL_FULL
+    n_bed = len(cases.channel_bed(n_layers=full["layers"]))
+    checks = {
+        f"grid {cfg.grid.shape}": cfg.grid.shape == full["counts"],
+        "graded y (1:10)": not cfg.grid.uniform,
+        "periodic (T, F, T)": cfg.dem.periodic == (True, False, True),
+        "frozen_types (2,)": cfg.dem.frozen_types == (2,),
+        "hooke_history": cfg.dem.pair.style == "hooke_history",
+        "Ubar 0.8": (cfg.fluid.forcing.mode == "Ubar"
+                     and abs(cfg.fluid.forcing.mag_ubar - 0.8) < 1e-12),
+        "kEqn": cfg.fluid.turbulence.model == "kEqn",
+        "K 16": cfg.dem.nbr_k == K == 16,
+        "carrier_rho 1000": cfg.dem.carrier_rho == 1000.0,
+        f"{n0} particles, capacity {particles.n_capacity}": (
+            n0 == n_bed and particles.n_capacity == 8192),
+    }
+    say(f"case: channel written in {t_write:.3f} s, loaded in {t_load:.3f} s"
+        f" ({n_cells} cells, {n0} particles, capacity "
+        f"{particles.n_capacity}, K {K}, dt {cfg.fluid.dt:g}, "
+        f"{cfg.cloud.sub_steps} substeps); config: "
+        + ", ".join(f"{k} {'ok' if v else 'WRONG'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        fail(f"case config: {[k for k, v in checks.items() if not v]}")
+    sub = cfg.cloud.sub_cycles * cfg.cloud.sub_steps
+
+    settle_cfg = dataclasses.replace(cfg, fluid=dataclasses.replace(
+        cfg.fluid, forcing=ChannelForcing(mode="none")))
+    fused.LAUNCHES = 0
+    fused.LAUNCH_SIZES.clear()
+    state0 = CoupledStep(settle_cfg, torch.float32, dev).initialize(
+        fluid, particles)
+    frozen = state0.particles.ptype == 2
+    pos_frozen = state0.particles.pos[frozen].clone()
+    settle = Simulation(settle_cfg, state0, device=dev)
+    t0 = time.perf_counter()
+    run_steps(settle, 1)
+    # the kernel and the whole step against their plain versions while
+    # the pressed layers are in contact (launches made to compare do not
+    # count)
+    launches, sizes = fused.LAUNCHES, fused.LAUNCH_SIZES.copy()
+    p = settle.state.particles
+    res = compare_chain("case f32", p, cfg.dem, True, 1e-5, timing=True,
+                        may_be_zero=("wall_shear",))
+    npair = int((p.shear != 0).any(dim=0).sum())
+    say(f"case kernel state: {npair} pair slots with shear history")
+    st = settle.state
+    kern = CoupledStep(cfg, torch.float32, dev)
+    plain = CoupledStep(dataclasses.replace(cfg, dem=dataclasses.replace(
+        cfg.dem, fused_chain=False)), torch.float32, dev)
+    worst, where = compare_states(kern(tree_map(torch.clone, st)),
+                                  plain(tree_map(torch.clone, st)))
+    say(f"case: one coupled step, kernel vs plain chain: worst {worst:.3e} "
+        f"({where}; tol 1e-3; Ua, DDtUa and phia compared as alpha*Ua)")
+    if worst > 1e-3:
+        fail("the case path through the kernel disagrees with the plain "
+             "chain")
+    fused.LAUNCHES, fused.LAUNCH_SIZES = launches, sizes
+    run_steps(settle, CASE_SETTLE)
+    torch.cuda.synchronize()
+    t_settle = time.perf_counter() - t0
+
+    sim = Simulation(cfg, settle.state, device=dev)
+    gp_series = []                 # device scalars: read after the run
+    linsolve.reset_stats()
+    t0 = time.perf_counter()
+    run_steps(sim, CASE_SETTLE + CASE_STEPS,
+              on_sample=lambda m: gp_series.append(
+                  m.state.fluid.grad_p_value.clone()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused.LAUNCHES
+    by_n = dict(fused.LAUNCH_SIZES)
+    it = {k: v[1] / CASE_STEPS for k, v in linsolve.STATS.items()}
+    ms = wall / CASE_STEPS * 1e3
+    say(f"case: {CASE_SETTLE} settling steps in {t_settle:.3f} s (with the "
+        f"comparisons), {CASE_STEPS} Ubar steps in {wall:.4f} s = "
+        f"{ms:.3f} ms/step; per step {it['pcg']:.1f} PCG and "
+        f"{it['bicgstab']:.1f} BiCGStab iterations "
+        f"({linsolve.STATS['pcg'][0] / CASE_STEPS:.1f} and "
+        f"{linsolve.STATS['bicgstab'][0] / CASE_STEPS:.1f} solves)")
+
+    s = sim.state
+    check_finite(s, "case")
+    dropped = int(s.particles.nbr_dropped)
+    n_active = int(s.particles.active.sum())
+    moved = float((s.particles.pos[frozen] - pos_frozen).abs().max())
+    alpha = s.fluid.alpha
+    amin, amax = float(alpha.min()), float(alpha.max())
+    gp = [float(g) for g in gp_series]
+    gp_mean = sum(gp) / len(gp)
+    # the controller's own target: the beta*V-weighted mean of the
+    # mixture velocity along the flow direction (chPressureGrad.C:242-257)
+    bV = s.fluid.beta * torch.as_tensor(cfg.grid.cell_volume,
+                                        dtype=alpha.dtype, device=dev)
+    ubar = float((s.fluid.U[0] * bV).sum() / bV.sum())
+    ubx = float(s.fluid.Ub[0].mean())
+    say(f"case state: finite; nbr_dropped {dropped}; active {n_active}; "
+        f"frozen rows moved {moved:.3e} m; alpha in [{amin:.4g}, "
+        f"{amax:.4g}]; Ubar {ubar:.6f} m/s (target 0.8); mean Ub_x "
+        f"{ubx:.6g} m/s; grad_p_value by Ubar step "
+        f"{[round(g, 4) for g in gp]} (mean {gp_mean:.6g}); "
+        f"mobile mean |v| "
+        f"{float(s.particles.vel[s.particles.ptype == 1].norm(dim=1).mean()):.4g}"
+        " m/s")
+    if dropped != 0:
+        fail(f"case: neighbor audit dropped {dropped} in-ring partners")
+    if n_active != n0:
+        fail(f"case: {n0 - n_active} particles escaped")
+    if not torch.equal(s.particles.pos[frozen], pos_frozen):
+        fail(f"case: the frozen bed moved ({moved} m)")
+    if amin < -ALPHA_ROUNDOFF or amax > cfg.fluid.max_possible_alpha:
+        fail(f"case: alpha outside [-{ALPHA_ROUNDOFF}, max_possible_alpha]")
+    # the forcing that took the stream from rest to Ubar is positive over
+    # the run; its value at a single step of the spin-up may change sign
+    if not (gp_mean > 0.0 and ubx > 0.0 and abs(ubar - 0.8) < 1e-3):
+        fail(f"case: Ubar forcing: mean grad_p_value {gp_mean}, mean Ub_x "
+             f"{ubx}, Ubar {ubar}")
+    expected = 1 + (CASE_SETTLE + CASE_STEPS) * sub
+    say(f"contact_chain launches: {launches} (1 setup + "
+        f"{CASE_SETTLE + CASE_STEPS} steps x {sub} substeps = {expected}) "
+        f"by N {by_n} at K {K}")
+    if launches != expected:
+        fail(f"kernel launched {launches} times, expected {expected}")
+
+    # host syncs, the split, the Ubar sums (after the counted run)
+    n_sync = count_syncs(lambda: sim.step_fn(tree_map(torch.clone, s)))
+    say(f"case: host syncs in one coupled step: {n_sync} (torch sync debug "
+        f"mode; {sub} Verlet rebuild tests + PCG and BiCGStab stop tests)")
+    split = sim.timing_split(n=2)
+    say("case timing_split (CUDA events, mean of 2): " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in split.items()))
+    fs = s.fluid
+    rua = torch.full_like(fs.alpha, 1e-3)
+    ubar_ms = cuda_ms(lambda: piso.adjust_channel_forcing(
+        fs, rua, cfg.grid, cfg.fluid), 3)
+    say(f"case: one Ubar adjust (its 4 compensated sums over {n_cells} "
+        f"cells, {-(-n_cells // 1024)} block partials each) {ubar_ms:.3f} ms"
+        f" (CUDA events), {ubar_ms / ms * 100:.1f}% of a step")
+    res["launches"] = launches
+    res["N"], res["K"] = sorted(by_n), K
+    return res
+
+
+def phase_entry(dev):
+    """Simulation.from_case and the run_case module on the written
+    xiaocase3."""
+    import torch
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import initialize
+    with tempfile.TemporaryDirectory() as tmp:
+        case = cases.write_xiaocase3(os.path.join(tmp, "xiaocase3"))
+        sim = Simulation.from_case(case, device=dev)
+        cfg, fluid, particles = cases.xiaocase3(torch.float64, dev)
+        built = Simulation(cfg, initialize(fluid, particles, cfg),
+                           device=dev)
+        for s in (sim, built):
+            run_steps(s, ENTRY_STEPS)
+        worst, where = compare_states(built.state, sim.state)
+        say(f"entry: Simulation.from_case(xiaocase3) vs cases.xiaocase3(), "
+            f"{ENTRY_STEPS} steps (dense, f64): worst {worst:.3e} ({where}; "
+            f"tol 1e-12); controls {sim.controls}")
+        if worst > 1e-12 or sim.state.fluid.p.device.type != "cuda":
+            fail("Simulation.from_case disagrees with the built case")
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        res = subprocess.run(
+            [sys.executable, "-m", "sedifoam_tpu_torch.run_case", case,
+             "--f64", "--backend", "dense", "--t-end", "6e-5",
+             "--device", "cuda"], capture_output=True, text=True, env=env,
+            cwd=REPO, timeout=600)
+        t_run = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"run_case exited {res.returncode}: {res.stderr[-2000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    keys = {"case", "t_end", "n_particles", "wall_time_s", "steps_per_s"}
+    say(f"entry: python -m sedifoam_tpu_torch.run_case --device cuda: exit "
+        f"0 in {t_run:.2f} s, {json.dumps(summary)}")
+    if not keys <= set(summary) or summary["n_particles"] != 1:
+        fail(f"run_case summary {summary}")
+
+
 def main():
     try:
         import torch
@@ -644,13 +882,24 @@ def main():
     inject_launches, by_n = phase_inject(dev)
     launches += inject_launches
     phase_dense(dev)
+    case = phase_case(dev)
+    launches += case["launches"]
+    phase_entry(dev)
     say(smi)
+    ran_at = [{"N": 131072, "K": 8, "launches": launches - inject_launches
+               - case["launches"]}]
+    ran_at += [{"N": n, "K": 8, "launches": c} for n, c in by_n.items()]
+    ran_at += [{"N": n, "K": case["K"], "launches": case["launches"]}
+               for n in case["N"]]
     say(json.dumps({"kernels": [{
         "name": "contact_chain", "route": "cuda",
         "source": "sedifoam_tpu_torch/csrc/contact_chain.cu",
         "replaces": "sedifoam_tpu/dem/fused.py:33",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+        "launches": launches, "max_abs_err": max(k["max_abs_err"],
+                                                 case["max_abs_err"]),
+        "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "case_ms": case["ms"], "case_plain_ms": case["plain_ms"],
+        "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

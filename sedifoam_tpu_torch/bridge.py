@@ -61,7 +61,9 @@ def _named(cls, d, device, dtype):
 
 def particle_state_from_numpy(d, device=None, dtype=None) -> ParticleState:
     if d.get("rigid") is not None:
-        raise NotImplementedError("rigid clumps are not ported")
+        raise NotImplementedError(
+            "rigid clumps (ParticleState.mol/rigid, dem/rigid.py) are not "
+            "ported")
     return _named(ParticleState, d, device, dtype)
 
 

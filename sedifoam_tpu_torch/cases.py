@@ -1,5 +1,7 @@
-"""Cases built in code for the port's runner: the xiaocase3 golden case
-and a jetFlow-pattern injection column.
+"""Cases for the port's runner: the xiaocase3 golden case and a
+jetFlow-pattern injection column built in code, and writers of
+sediFoam-format case directories (0/, constant/, system/, in.lammps and
+a LAMMPS data file) that both packages' loaders read.
 
 ``xiaocase3`` is the case of tests/test_golden_xiaocase3.py (the
 reference's cases/auto-testing/test-cases/xiaocase3, built from its own
@@ -15,9 +17,16 @@ a thin slab around the inlet cells' centre plane, so particles injected
 at the inlet velocity leave it before the next add and the population
 grows by one layer per add; the layers are spaced wider than a particle
 diameter, so they do not collide.
+
+``write_xiaocase3`` writes the dictionaries that ``xiaocase3``
+transcribes; loading the directory gives the same case.
+``write_channel_case`` writes a transport-bedload channel (see its
+docstring for what it is built from and which values it chooses).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -37,6 +46,7 @@ def xiaocase3(dtype=torch.float64, device=None):
     grid = Grid(nx=10, ny=10, nz=1, dx=4e-4, dy=4e-4, dz=5e-4)
 
     emp = bc.PatchBC(bc.EMPTY)
+    emp3 = bc.PatchBC(bc.EMPTY, (0.0, 0.0, 0.0))
     # 0/Ub: inlet (ym) fixedValue (0 0.05 0); outlet (yp) inletOutlet;
     # walls (xm, xp) fixedValue 0
     vin = 0.05
@@ -58,8 +68,8 @@ def xiaocase3(dtype=torch.float64, device=None):
             "yp": bc.PatchBC(bc.INLET_OUTLET, (0.0, 0.0, 0.0)),
             "xm": bc.PatchBC(bc.FIXED_VALUE, (0.0, 0.0, 0.0)),
             "xp": bc.PatchBC(bc.FIXED_VALUE, (0.0, 0.0, 0.0)),
-            "zm": emp, "zp": emp}),
-        Ua=bc.make_field_bc({"zm": emp, "zp": emp},
+            "zm": emp3, "zp": emp3}),
+        Ua=bc.make_field_bc({"zm": emp3, "zp": emp3},
                             default=bc.PatchBC(bc.ZERO_GRADIENT,
                                                (0.0, 0.0, 0.0))),
     )
@@ -172,3 +182,295 @@ def inject_case(nx=32, ny=64, nz=32, capacity=65536, dtype=torch.float32,
     Ub[1] = vin
     fluid = init_fluid(grid, Ub=Ub, dtype=dtype, device=device)
     return cfg, fluid, particles
+
+
+# ---------------------------------------------------------------------------
+# case-directory writers
+# ---------------------------------------------------------------------------
+
+_FOAM_HEADER = """FoamFile
+{{
+    version     2.0;
+    format      ascii;
+    class       {cls};
+    object      {obj};
+}}
+"""
+
+
+def _write(path, text):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def _foam(case_dir, rel, cls, body):
+    _write(os.path.join(case_dir, rel),
+           _FOAM_HEADER.format(cls=cls, obj=os.path.basename(rel)) + body)
+
+
+def _field(case_dir, name, cls, dims, internal, patches):
+    """0/<name> with `patches` {patch: 'entries;'}."""
+    bf = "".join(f"    {p}\n    {{\n        {spec}\n    }}\n"
+                 for p, spec in patches.items())
+    _foam(case_dir, os.path.join("0", name), cls,
+          f"dimensions {dims};\ninternalField {internal};\n"
+          f"boundaryField\n{{\n{bf}}}\n")
+
+
+def _data_file(path, rows, box, n_types):
+    lines = ["sedifoam case writer IC", "", f"{len(rows)} atoms",
+             f"{n_types} atom types", "",
+             f"{box[0]} {box[1]} xlo xhi", f"{box[2]} {box[3]} ylo yhi",
+             f"{box[4]} {box[5]} zlo zhi", "", "Atoms", ""]
+    _write(path, "\n".join(lines + rows) + "\n")
+
+
+def _probes(locations):
+    pts = " ".join(f"({x} {y} {z})" for x, y, z in locations)
+    return ("functions\n{\n    probes\n    {\n        type probes;\n"
+            "        fields (p Ub);\n"
+            f"        probeLocations ({pts});\n    }}\n}}\n")
+
+
+_DIMS = {"alpha": "[0 0 0 0 0 0 0]", "p": "[1 -1 -2 0 0 0 0]",
+         "U": "[0 1 -1 0 0 0 0]"}
+
+
+def write_xiaocase3(case_dir: str) -> str:
+    """Write xiaocase3 as a case directory: the dictionaries that
+    ``xiaocase3`` transcribes (blockMesh 4x4x0.5 mm in 10x10x1 cells,
+    deltaT 2e-5, timestep 2e-7, the gran/hooke/history 5000 NULL 11200
+    NULL 0.1 0 pair and three wall pairs, SyamlalOBrien drag, band 2e-4,
+    one 83 um sphere), a laminar flow as ``xiaocase3`` runs it, and one
+    probe. Returns case_dir."""
+    _foam(case_dir, "constant/polyMesh/blockMeshDict", "dictionary", """
+convertToMeters 1;
+vertices ( (0 0 0) (0.004 0 0) (0.004 0.004 0) (0 0.004 0)
+           (0 0 0.0005) (0.004 0 0.0005) (0.004 0.004 0.0005)
+           (0 0.004 0.0005) );
+blocks ( hex (0 1 2 3 4 5 6 7) (10 10 1) simpleGrading (1 1 1) );
+edges ();
+boundary
+(
+    inlet  { type patch; faces ( (1 5 4 0) ); }
+    outlet { type patch; faces ( (3 7 6 2) ); }
+    walls  { type wall;  faces ( (0 4 7 3) (2 6 5 1) ); }
+);
+""")
+    empty = {"defaultFaces": "type empty;"}
+    _field(case_dir, "alpha", "volScalarField", _DIMS["alpha"], "uniform 0",
+           {"inlet": "type fixedValue; value uniform 0;",
+            "outlet": "type inletOutlet; inletValue uniform 0; "
+                      "value uniform 0;",
+            "walls": "type zeroGradient;", **empty})
+    _field(case_dir, "p", "volScalarField", _DIMS["p"], "uniform 0",
+           {"inlet": "type zeroGradient;",
+            "outlet": "type fixedValue; value uniform 0;",
+            "walls": "type zeroGradient;", **empty})
+    _field(case_dir, "Ub", "volVectorField", _DIMS["U"], "uniform (0 0.05 0)",
+           {"inlet": "type fixedValue; value uniform (0 0.05 0);",
+            "outlet": "type inletOutlet; inletValue uniform (0 0 0); "
+                      "value uniform (0 0 0);",
+            "walls": "type fixedValue; value uniform (0 0 0);", **empty})
+    _field(case_dir, "Ua", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
+           {"inlet": "type zeroGradient;", "outlet": "type zeroGradient;",
+            "walls": "type zeroGradient;", **empty})
+    _foam(case_dir, "system/controlDict", "dictionary", """
+startTime 0;
+endTime 0.005;
+deltaT 2e-05;
+writeInterval 0.001;
+""" + _probes([(0.002, 0.003, 0.00025)]))
+    _foam(case_dir, "system/fvSolution", "dictionary", """
+solvers
+{
+    p { solver PCG; preconditioner DIC; tolerance 1e-10; relTol 0; }
+}
+PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
+""")
+    _foam(case_dir, "constant/transportProperties", "dictionary", """
+rhoa rhoa [1 -3 0 0 0 0 0] 2000;
+rhob rhob [1 -3 0 0 0 0 0] 1000;
+nub nub [0 2 -1 0 0 0 0] 1e-06;
+Cvm Cvm [0 0 0 0 0 0 0] 0;
+Cl Cl [0 0 0 0 0 0 0] 0;
+""")
+    _foam(case_dir, "constant/environmentalProperties", "dictionary",
+          "g g [0 1 -2 0 0 0 0] (0 0 0);\n")
+    _foam(case_dir, "constant/turbulenceProperties", "dictionary",
+          "simulationType laminar;\n")
+    _foam(case_dir, "constant/cloudProperties", "dictionary", """
+dragModel SyamlalOBrien;
+subCycles 1;
+diffusionBandWidth 2e-4;
+diffusionSteps 6;
+""")
+    _write(os.path.join(case_dir, "in.lammps"), """\
+atom_style      sphere
+boundary        f f f
+newton          off
+read_data       IC_uniform.in
+pair_style      gran/hooke/history 5000 NULL 11200 NULL 0.1 0
+pair_coeff      * *
+timestep        2e-7
+fix             1 all nve/sphere
+fix             2 all gravity 0 vector 0 -1 0
+fix             3 all fdrag
+fix             xwalls all wall/gran 5000 NULL 11200 NULL 0.1 0 xplane 0.0 0.004
+fix             ywalls all wall/gran 5000 NULL 11200 NULL 0.1 0 yplane 0.0 0.004
+fix             zwalls all wall/gran 5000 NULL 11200 NULL 0.1 0 zplane 0.0 0.0005
+""")
+    _data_file(os.path.join(case_dir, "IC_uniform.in"),
+               ["1 1 8.3e-05 2000 0.002 0.0019 0.00025"],
+               (0.0, 0.004, 0.0, 0.004, 0.0, 0.0005), 1)
+    return case_dir
+
+
+# the transport-bedload box (scripts/validate_bedload.py:39) and its full
+# mesh (tests/test_bedload_case.py:74)
+CHANNEL_BOX = (0.0, 0.121250, 0.0, 0.04, 0.0, 0.06001)
+CHANNEL_FULL = dict(counts=(140, 65, 60), layers=6)
+
+
+def channel_bed(d=2.5e-3, n_layers=6, frozen_layers=1, seed=7,
+                overlap=0.0):
+    """scripts/validate_bedload.py's jittered simple-cubic bed over the
+    channel's x-z extent: data-file rows (id type d rho x y z), the
+    bottom `frozen_layers` of type 2, the rest type 1. The layers are
+    2.05 r apart, as there; overlap > 0 stacks them d - overlap apart
+    instead (each layer pressed into the one below: contacts from the
+    first substep)."""
+    box = CHANNEL_BOX
+    rng = np.random.default_rng(seed)
+    r = 0.5 * d
+    pitch = 2.05 * r
+    layer_pitch = d - overlap if overlap > 0 else pitch
+    nx = int((box[1] - box[0] - d) / pitch)
+    nz = int((box[5] - box[4] - d) / pitch)
+    rows = []
+    tag = 1
+    for layer in range(n_layers):
+        y = box[2] + r + layer * layer_pitch
+        for i in range(nx):
+            for k in range(nz):
+                x = box[0] + r + (i + 0.5) * (box[1] - box[0] - d) / nx
+                z = box[4] + r + (k + 0.5) * (box[5] - box[4] - d) / nz
+                jx, jz = rng.uniform(-0.02 * r, 0.02 * r, 2)
+                t = 2 if layer < frozen_layers else 1
+                rows.append(f"{tag} {t} {d} 2650.0 "
+                            f"{x + jx:.8f} {y:.8f} {z + jz:.8f}")
+                tag += 1
+    return rows
+
+
+def write_channel_case(case_dir: str, counts=(140, 65, 60), layers=6,
+                       d=2.5e-3, frozen_layers=1, seed=7,
+                       overlap=0.0) -> str:
+    """Write a transport-bedload channel (the SediFoam paper's sediment
+    transport case) as a case directory. Returns case_dir.
+
+    From what the repo records:
+    - the 0.12125 x 0.04 x 0.06001 m box meshed as one hex with
+      `simpleGrading (1 10 1)`, patches bottom (y-) and top (y+) walls,
+      left/right (x) and front/back (z) cyclic
+      (tests/test_bedload_case.py:92-109); full counts 140 x 65 x 60;
+    - scripts/validate_bedload.py's jittered bed (d = 2.5 mm, rhoa 2650,
+      seed 7, the bottom layer type 2 and frozen; 46 x 22 per layer;
+      `overlap` presses the layers together, see channel_bed);
+    - water (rhob 1000, nub 1e-6), top slip, kEqn LES, Ubar (0.8 0 0),
+      `boundary p f p`, a `freeze` fix on the type-2 group, y walls.
+
+    Chosen here (the repo does not record them):
+    - the pair (and wall) line: xiaocase3's gran/hooke/history 5000 NULL
+      11200 NULL 0.1 0;
+    - DEM timestep 2.5e-6 s, below 1/50 of the Hooke contact time
+      pi*sqrt(m_eff/kn) = 1.46e-4 s at d = 2.5 mm;
+    - deltaT 1e-4 s: 40 substeps, Courant 0.09 at 0.8 m/s on the full
+      mesh;
+    - `fix fdrag` with carrier density 1000, so the DDtU path runs;
+    - ErgunWenYu drag; the loader's defaults for the smoothing;
+    - the pressure solve: PCG tolerance 1e-6, 2 PISO correctors;
+    - the fluid starts at rest; 0/Ua pins the bottom to its internal
+      field ($internalField).
+    """
+    box = CHANNEL_BOX
+    nx, ny, nz = counts
+    _foam(case_dir, "constant/polyMesh/blockMeshDict", "dictionary", f"""
+convertToMeters 1;
+vertices ( (0 0 0) ({box[1]} 0 0) ({box[1]} {box[3]} 0) (0 {box[3]} 0)
+           (0 0 {box[5]}) ({box[1]} 0 {box[5]}) ({box[1]} {box[3]} {box[5]})
+           (0 {box[3]} {box[5]}) );
+blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 10 1) );
+edges ();
+boundary
+(
+    bottom {{ type wall; faces ( (1 5 4 0) ); }}
+    top    {{ type wall; faces ( (3 7 6 2) ); }}
+    left   {{ type cyclic; neighbourPatch right; faces ( (0 4 7 3) ); }}
+    right  {{ type cyclic; neighbourPatch left;  faces ( (2 6 5 1) ); }}
+    front  {{ type cyclic; neighbourPatch back;  faces ( (0 1 2 3) ); }}
+    back   {{ type cyclic; neighbourPatch front; faces ( (4 5 6 7) ); }}
+);
+""")
+    cyc = {p: "type cyclic;" for p in ("left", "right", "front", "back")}
+    zg = "type zeroGradient;"
+    _field(case_dir, "alpha", "volScalarField", _DIMS["alpha"], "uniform 0",
+           {"bottom": zg, "top": zg, **cyc})
+    _field(case_dir, "p", "volScalarField", _DIMS["p"], "uniform 0",
+           {"bottom": zg, "top": zg, **cyc})
+    _field(case_dir, "Ub", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
+           {"bottom": "type fixedValue; value uniform (0 0 0);",
+            "top": "type slip;", **cyc})
+    _field(case_dir, "Ua", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
+           {"bottom": "type fixedValue; value $internalField;",
+            "top": "type slip;", **cyc})
+    L = box[1], box[3], box[5]
+    _foam(case_dir, "system/controlDict", "dictionary", """
+startTime 0;
+endTime 3;
+deltaT 1e-4;
+writeInterval 0.1;
+""" + _probes([(0.5 * L[0], 0.5 * L[1], 0.5 * L[2]),
+               (0.5 * L[0], 0.9 * L[1], 0.5 * L[2])]))
+    _foam(case_dir, "system/fvSolution", "dictionary", """
+solvers
+{
+    p { solver PCG; preconditioner DIC; tolerance 1e-6; relTol 0; }
+}
+PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
+""")
+    _foam(case_dir, "constant/transportProperties", "dictionary", """
+rhoa rhoa [1 -3 0 0 0 0 0] 2650;
+rhob rhob [1 -3 0 0 0 0 0] 1000;
+nub nub [0 2 -1 0 0 0 0] 1e-06;
+Ubar Ubar [0 1 -1 0 0 0 0] (0.8 0 0);
+""")
+    _foam(case_dir, "constant/environmentalProperties", "dictionary",
+          "g g [0 1 -2 0 0 0 0] (0 -9.81 0);\n")
+    _foam(case_dir, "constant/turbulenceProperties", "dictionary", """
+simulationType LES;
+LES { LESModel kEqn; turbulence on; delta cubeRootVol; }
+""")
+    _foam(case_dir, "constant/cloudProperties", "dictionary", """
+dragModel ErgunWenYu;
+subCycles 1;
+""")
+    _write(os.path.join(case_dir, "in.lammps"), f"""\
+atom_style      sphere
+boundary        p f p
+newton          off
+read_data       In_initial.in
+pair_style      gran/hooke/history 5000 NULL 11200 NULL 0.1 0
+pair_coeff      * *
+timestep        2.5e-6
+group           bed type 2
+fix             1 all nve/sphere
+fix             2 all gravity 9.81 vector 0 -1 0
+fix             3 all fdrag 1000
+fix             4 bed freeze
+fix             ywalls all wall/gran 5000 NULL 11200 NULL 0.1 0 yplane {box[2]} {box[3]}
+""")
+    _data_file(os.path.join(case_dir, "In_initial.in"),
+               channel_bed(d, layers, frozen_layers, seed, overlap), box, 2)
+    return case_dir

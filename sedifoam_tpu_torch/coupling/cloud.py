@@ -15,7 +15,7 @@ Per fluid step:
 With injection on, each subcycle first runs inject.maybe_add_delete. Its
 `lax.cond`s in the reference are Python branches here: whether an add
 fired and whether the delete box removed anyone are read from the device
-(inject.SYNCS counts these syncs). The semi-implicit drag is not ported.
+(inject.SYNCS counts these syncs).
 """
 
 from __future__ import annotations
@@ -139,10 +139,8 @@ def lift_drag_coeffs(fluid: FluidState, particles: ParticleState,
                      uf_smoothed, grid: Grid, bcs: FluidBCs,
                      ccfg: CloudConfig, fcfg: FluidConfig,
                      smoother=None) -> FluidState:
-    """liftDragCoeffs.H + calcTcFields: alpha cap, Asrc, lift coefficient."""
-    if ccfg.semi_implicit_drag:
-        raise NotImplementedError(
-            "CloudConfig.semi_implicit_drag is not ported")
+    """liftDragCoeffs.H + calcTcFields: alpha cap, Asrc, lift coefficient
+    (and the implicit drag coefficient Omega with the semi-implicit drag)."""
     smooth = _smooth_fn(grid, ccfg, smoother)
 
     # cap unphysical alpha (liftDragCoeffs.H:6-14)
@@ -158,11 +156,18 @@ def lift_drag_coeffs(fluid: FluidState, particles: ParticleState,
     jd_vals = _drag.jd(ccfg.drag_model, mag_uri, p_alpha, d,
                        fcfg.nub, fcfg.rhob)
 
-    asrc = _transfer.calc_asrc(particles, jd_vals, uf_smoothed, alpha,
-                               grid, smooth, ccfg.drag_smooth,
-                               uf_at_p=uf_at_p)
-    # Omega_ *= 0 (enhancedCloud.C:391): implicit drag disabled
-    drag_coef = torch.zeros_like(alpha)
+    if ccfg.semi_implicit_drag:
+        # dormant reference branch (enhancedCloud.C:338-360): Omega on the
+        # momentum diagonal makes stiff gas-solid drag unconditionally
+        # stable; Asrc carries omg*U_p through the flux
+        drag_coef, asrc = _transfer.calc_omega_asrc_semi(
+            particles, jd_vals, grid)
+    else:
+        asrc = _transfer.calc_asrc(particles, jd_vals, uf_smoothed, alpha,
+                                   grid, smooth, ccfg.drag_smooth,
+                                   uf_at_p=uf_at_p)
+        # Omega_ *= 0 (enhancedCloud.C:391): implicit drag disabled
+        drag_coef = torch.zeros_like(alpha)
 
     # liftCoeff = Cl*beta*rhob*(Ur ^ curl U)  (liftDragCoeffs.H:23)
     if fcfg.Cl != 0.0:

@@ -11,7 +11,6 @@ and Asrc that a packed bed amplifies to 3e-4 of the contact forces'
 scale within 6 coupled steps (H100), so two runs, or a run and its
 resume from a checkpoint, would not repeat. With the sorted sum a run
 repeats bit for bit on the card too (tests/test_torch_cuda.py).
-The semi-implicit drag fields (calc_omega_asrc_semi) are not ported.
 """
 
 from __future__ import annotations
@@ -180,6 +179,18 @@ def calc_asrc(state: ParticleState, jd_vals, uf_smoothed, gamma, grid: Grid,
     denom = torch.where(torch.abs(one_minus) > ROOTVSMALL, one_minus,
                         torch.ones_like(one_minus))
     return asrc / denom[None]
+
+
+def calc_omega_asrc_semi(state: ParticleState, jd_vals, grid: Grid):
+    """Semi-implicit coupling fields (enhancedCloud.C:338-360):
+    Omega = sum_p omg, Asrc = sum_p omg*U_p (no smoothing in the
+    reference's branch)."""
+    cells = particle_cells(state, grid)
+    V = cell_volume_at(cells, grid, jd_vals)
+    omg = state.volume * jd_vals / V
+    omega, asrc = scatter_fields(cells, state.active, grid,
+                                 omg, omg[:, None] * state.vel)
+    return omega, asrc
 
 
 def weighted_smooth_uf(Uf, gamma, smooth_fn):

@@ -32,9 +32,13 @@ def _require_ported(cfg: DEMConfig):
             f"DEMConfig.backend={cfg.backend!r}: only 'binned' and 'dense' "
             "are ported")
     if cfg.cohesion is not None:
-        raise NotImplementedError("DEMConfig.cohesion is not ported")
+        raise NotImplementedError(
+            "DEMConfig.cohesion (fix cohesive, dem/cohesion.py) is not "
+            "ported")
     if cfg.lubrication is not None:
-        raise NotImplementedError("DEMConfig.lubrication is not ported")
+        raise NotImplementedError(
+            "DEMConfig.lubrication (pair_style lubricate/poly, "
+            "dem/lubrication.py) is not ported")
     if cfg.sort_on_rebuild:
         raise NotImplementedError("DEMConfig.sort_on_rebuild is not ported")
 

@@ -88,7 +88,10 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
     if capacity < n:
         raise ValueError(f"capacity {capacity} < {n} particles")
     if mol is not None and (np.asarray(mol) > 0).any():
-        raise NotImplementedError("rigid clumps (mol ids) are not ported")
+        raise NotImplementedError(
+            "make_particles(mol=...): rigid clumps (`fix rigid/small "
+            "molecule`, ParticleState.mol/rigid, dem/rigid.py) are not "
+            "ported")
 
     def t(a, dt=None):
         return torch.as_tensor(a, dtype=dt or dtype, device=device)

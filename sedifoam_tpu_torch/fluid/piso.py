@@ -8,9 +8,11 @@ Per fluid timestep (lammpsFoam.C:74-123):
                    source entering the face flux (phiDragb), pressure
                    Poisson, flux/velocity reconstruction
   4. gradP.adjust — channel forcing feedback (chPressureGrad.C:221-300)
+  5. DDtU.H      — material derivatives for the coupling forces
 
-Not ported (raise NotImplementedError): the Cvm virtual-mass block, IBM
-and DNS forcing, the DDtU material derivatives, and Ubar channel forcing.
+The Cvm virtual-mass block and the IBM relaxation term are assembled as
+in the reference. DNS spectral forcing (fluid/bodyforce.py in the
+reference) is not ported: FluidConfig.add_dns_force raises.
 """
 
 from __future__ import annotations
@@ -128,12 +130,10 @@ class UbEqn(NamedTuple):
 def assemble_ub_eqn(fs: FluidState, grid: Grid, bcs: FluidBCs,
                     cfg: FluidConfig, nu_eff) -> UbEqn:
     """UEqns.H — the fluid-phase momentum matrix."""
-    if cfg.Cvm != 0.0:
-        raise NotImplementedError("FluidConfig.Cvm != 0 is not ported")
-    if cfg.add_ibm_force:
-        raise NotImplementedError("FluidConfig.add_ibm_force is not ported")
     if cfg.add_dns_force:
-        raise NotImplementedError("FluidConfig.add_dns_force is not ported")
+        raise NotImplementedError(
+            "FluidConfig.add_dns_force: the DNS spectral forcing "
+            "(fluid/bodyforce.py) is not ported")
     dt = cfg.dt
     t = fs.time
     beta = fs.beta
@@ -158,11 +158,23 @@ def assemble_ub_eqn(fs: FluidState, grid: Grid, bcs: FluidBCs,
     cross_diff = torch.stack([
         nu_eff * torch.sum(grad_beta * grad_Ub[j], dim=0) for j in range(3)])
 
+    # Cvm block shares the scheme but uses the phase flux phib
+    use_cvm = cfg.Cvm != 0.0
+    if use_cvm:
+        wV_phib = ops.limited_weights_vec(fs.Ub, grid, bcs.Ub, fs.phib,
+                                          k=1.0, t=t)
+        div_phib = ops.div_flux(fs.phib, grid)
+        cvm_scale = cfg.Cvm * alpha * beta
+
     g_dir = torch.tensor(cfg.forcing.flow_direction, dtype=beta.dtype,
                          device=beta.device)
     avg_beta = ops.average_to_cells(betaf, grid, bcs.alpha)
-    # RHS explicit: beta*alpha/rhob*lift (+ channel gradP below)
-    rhs_exp = (beta * alpha / cfg.rhob)[None] * fs.lift_coeff
+    # RHS explicit: beta*alpha/rhob*(lift + Cvm*rhob*DDtUa) + channel
+    # gradP below (the Cvm term is Python-gated: with Cvm == 0 it is
+    # exact zeros, and DDtUa may be stale — see solver.need_ddtu)
+    rhs_inner = fs.lift_coeff if not use_cvm else (
+        fs.lift_coeff + cfg.Cvm * cfg.rhob * fs.DDtUa)
+    rhs_exp = (beta * alpha / cfg.rhob)[None] * rhs_inner
 
     terms = []
     for j in range(3):
@@ -170,6 +182,11 @@ def assemble_ub_eqn(fs: FluidState, grid: Grid, bcs: FluidBCs,
         tm = linop.ddt(fs.Ub_old[j], dt, grid, coeff=beta, coeff_old=beta_old)
         tm = tm + linop.div(beta_phib, fs.Ub[j], grid, cbc, wV, t=t)
         tm = tm - linop.Sp(ddt_beta + div_beta_phib, grid)
+        if use_cvm:
+            blk = linop.ddt(fs.Ub_old[j], dt, grid)
+            blk = blk + linop.div(fs.phib, fs.Ub[j], grid, cbc, wV_phib, t=t)
+            blk = blk - linop.Sp(div_phib, grid)
+            tm = tm + cvm_scale * blk
         # divDevReff(Ub) = -laplacian(beta*nuEff, Ub) - div(beta*nuEff*dev2(T(grad Ub)))
         tm = tm - linop.laplacian(beta_nu_f, grid, cbc, phi=fs.phib, t=t)
         tm = tm - linop.source(-div_dev[j], grid)   # explicit LHS piece
@@ -180,6 +197,11 @@ def assemble_ub_eqn(fs: FluidState, grid: Grid, bcs: FluidBCs,
         tm = tm + beta * linop.Sp(fs.drag_coef / cfg.rhob, grid)
         tm = tm + linop.source(
             rhs_exp[j] + avg_beta * g_dir[j] * fs.grad_p_value, grid)
+        if cfg.add_ibm_force:
+            # UEqns.H:38-41: implicit relaxation toward zero velocity
+            relax_t = cfg.ibm_relax_time if cfg.ibm_relax_time > 0 \
+                else 3.0 * dt
+            tm = tm + linop.Sp(fs.ibm_indicator / relax_t, grid)
         tm = tm.relax(fs.Ub[j], cfg.piso.momentum_relax)
         terms.append(tm)
 
@@ -309,22 +331,54 @@ def _zero_on_zero_gradient_p(flux: FaceField, pbc: _bc.FieldBC) -> FaceField:
 
 def ddtu(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig
          ) -> FluidState:
-    """DDtU.H is not ported: nothing on the ported path consumes it."""
-    raise NotImplementedError(
-        "DDtU (needed by FluidConfig.Cvm, CloudConfig.particle_added_mass "
-        "or DEMConfig.carrier_rho) is not ported")
+    """DDtU.H — DDtU = ddt(U) + div(phi, U) - div(phi)*U (per phase)."""
+    dt = cfg.dt
+    t = fs.time
+
+    def _one(U, U_old, phi, vbc):
+        w = ops.limited_weights_vec(U, grid, vbc, phi, k=1.0, t=t)
+        divphi = ops.div_flux(phi, grid)
+        comps = []
+        for j in range(3):
+            fv = ops.weighted_face_value(U[j], w, grid, vbc.component(j),
+                                         phi, t)
+            conv = ops.div_flux_field(phi, fv, grid)
+            comps.append((U[j] - U_old[j]) / dt + conv - divphi * U[j])
+        return torch.stack(comps)
+
+    DDtUa = _one(fs.Ua, fs.Ua_old, fs.phia, bcs.Ua)
+    DDtUb = _one(fs.Ub, fs.Ub_old, fs.phib, bcs.Ub)
+    return fs._replace(DDtUa=DDtUa, DDtUb=DDtUb)
 
 
 def adjust_channel_forcing(fs: FluidState, rUbA, grid: Grid,
                            cfg: FluidConfig) -> FluidState:
-    """chPressureGrad::adjust (chPressureGrad.C:221-300), modes none,
-    gradPbar and varyingGradP."""
+    """chPressureGrad::adjust (chPressureGrad.C:221-300)."""
     f = cfg.forcing
     if f.mode == "none":
         return fs
     if f.mode == "Ubar":
-        raise NotImplementedError(
-            "ChannelForcing.mode='Ubar' is not ported (needs utils/accum)")
+        # chPressureGrad.C:242-257: magUbarStar = (dir & U) weighted by
+        # beta*V; gradPplus = (magUbar - magUbarStar)/avgV(rUA);
+        # U += dir*rUA*gradPplus — U is the mixture, and alpha*Ua is
+        # particle-imposed, so the increment lands on beta*Ub:
+        # Ub += dir*rUA*gradPplus/beta.
+        from sedifoam_tpu_torch.utils.accum import stable_dot, stable_sum
+        direction = torch.tensor(f.flow_direction, dtype=fs.p.dtype,
+                                 device=fs.p.device)
+        beta = fs.beta
+        V = ops._const(grid.cell_volume, beta) + torch.zeros_like(beta)
+        Udir = torch.einsum("c,cxyz->xyz", direction, fs.U)
+        bV = beta * V
+        # compensated global means: the forcing feedback integrates this
+        # error over thousands of steps (the reference does it in f64)
+        pol = cfg.dtype_policy
+        mag_ubar_star = stable_dot(Udir, bV, pol) / stable_sum(bV, pol)
+        rub_avg = stable_dot(rUbA, V, pol) / stable_sum(V, pol)
+        grad_p_plus = (f.mag_ubar - mag_ubar_star) / rub_avg
+        dU = rUbA * grad_p_plus / torch.clamp(beta, min=1e-6)
+        Ub = fs.Ub + direction[:, None, None, None] * dU[None]
+        return fs._replace(Ub=Ub, grad_p_value=fs.grad_p_value + grad_p_plus)
     if f.mode == "gradPbar":
         val = abs(f.grad_pbar) + abs(f.dpdt) * fs.time
         return fs._replace(grad_p_value=val)

@@ -35,7 +35,7 @@ class FluidState(NamedTuple):
     Ub_old: torch.Tensor
     phia_old: FaceField
     phib_old: FaceField
-    # material derivatives (DDtU.H; not ported, stay zero)
+    # material derivatives (DDtU.H; zero unless solver.need_ddtu)
     DDtUa: torch.Tensor
     DDtUb: torch.Tensor
     # particle->fluid explicit momentum source (enhancedCloud::Asrc)
@@ -47,7 +47,8 @@ class FluidState(NamedTuple):
     k: torch.Tensor
     epsilon: torch.Tensor
     nut: torch.Tensor
-    # body-force state (not ported, stays zero)
+    # body-force state: the IBM indicator (0/ibmIndicator); the DNS
+    # forcing fields stay zero (fluid/bodyforce.py is not ported)
     ibm_indicator: torch.Tensor
     turbulence_force: torch.Tensor
     dns_f_hat: torch.Tensor

@@ -26,14 +26,17 @@ def advance_time(fs: FluidState, cfg: FluidConfig) -> FluidState:
 def fluid_step(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig,
                advance: bool = True, need_ddtu: bool = False,
                pprecond=None) -> FluidState:
-    """need_ddtu=True asks for DDtU.H, which is not ported and raises (the
-    reference defaults to True; its solver passes solver.need_ddtu(cfg),
-    False on the ported path). `pprecond` is the prebuilt pressure
-    preconditioner (built here when None)."""
-    if need_ddtu:
-        _piso.ddtu(fs, grid, bcs, cfg)
+    """need_ddtu=False skips DDtU.H: the material derivatives feed only
+    the Cvm virtual-mass RHS (piso.assemble_ub_eqn) and the particle
+    added-mass / fix-fdrag carrier_rho terms (coupling/forces.py,
+    dem/integrate.py), all gated off on the same config switches; the
+    solver derives the flag from the SimConfig (solver.need_ddtu).
+    `pprecond` is the prebuilt pressure preconditioner (built here when
+    None). DNS spectral forcing is not ported and raises."""
     if cfg.add_dns_force:
-        raise NotImplementedError("FluidConfig.add_dns_force is not ported")
+        raise NotImplementedError(
+            "FluidConfig.add_dns_force: the DNS spectral forcing "
+            "(fluid/bodyforce.py) is not ported")
     if advance:
         fs = advance_time(fs, cfg)
 
@@ -48,4 +51,7 @@ def fluid_step(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig,
     rUbA = fs.beta / eqn.A(grid)
     fs = _piso.adjust_channel_forcing(fs, rUbA, grid, cfg)
 
-    return _turb.correct(fs, grid, bcs, cfg)
+    fs = _turb.correct(fs, grid, bcs, cfg)
+    if need_ddtu:
+        fs = _piso.ddtu(fs, grid, bcs, cfg)
+    return fs

@@ -6,9 +6,8 @@ directories store them (FoamFile header + `internalField nonuniform
 List<...>` in blockMesh cell order: x fastest), so a user of the
 reference can point their existing OpenFOAM post-processing (sample,
 postChannel, paraFoam readers) at our output unchanged. Fields are
-numpy arrays (callers copy tensors to the host). The reader
-(`read_field`) needs the OpenFOAM dictionary parser and comes with the
-case loader.
+numpy arrays (callers copy tensors to the host); `read_field` reads
+one back.
 """
 
 from __future__ import annotations
@@ -110,3 +109,17 @@ def write_time_dir(out_dir: str, time_name: str, grid: Grid,
                     patch_names=patch_names, time_name=time_name)
     return tdir
 
+
+def read_field(path: str, grid: Grid):
+    """Read back a field written by write_field (round-trip check):
+    (nx,ny,nz) or (3,nx,ny,nz) numpy array."""
+    from sedifoam_tpu_torch.io import foamdict
+    d = foamdict.parse_file(path)
+    entry = d["internalField"]
+    inner = next(e for e in entry if isinstance(e, list))
+    arr = np.asarray(inner, float)
+    if arr.ndim == 2:   # vector rows
+        comps = [arr[:, c].reshape(grid.nz, grid.ny, grid.nx
+                                   ).transpose(2, 1, 0) for c in range(3)]
+        return np.stack(comps)
+    return arr.reshape(grid.nz, grid.ny, grid.nx).transpose(2, 1, 0)

@@ -1,5 +1,6 @@
-"""Matrix-free preconditioned conjugate gradient (port of
-``sedifoam_tpu/linsolve.py::pcg``).
+"""Matrix-free preconditioned linear solvers (port of
+``sedifoam_tpu/linsolve.py``: ``pcg`` for the pressure Poisson,
+``bicgstab`` for the nonsymmetric k/epsilon transport equations).
 
 Convergence uses OpenFOAM's residual normalisation, so tolerance-based
 termination gives comparable answers:
@@ -9,7 +10,11 @@ termination gives comparable answers:
 The reference's lax.while_loop is a Python loop with the same stop rule
 (tolerance floored at the dtype's round-off, relative tolerance, stall
 counter, finite check); deciding to stop costs one host sync per
-iteration.
+iteration and one at the end. `STATS` counts solves and iterations per
+solver (so solves + iterations stop tests, each a host sync).
+
+``pcg_multi`` is not ported: its one caller, the smoothing's PCG branch,
+is dead while the FastDiag smoothing is on (it always is in the port).
 """
 
 from __future__ import annotations
@@ -19,6 +24,14 @@ from typing import Callable, NamedTuple
 import torch
 
 _SMALL = 1e-300  # solverPerformance::small_ analogue (f64)
+
+# [solves, iterations] per solver since the last reset_stats()
+STATS = {"pcg": [0, 0], "bicgstab": [0, 0]}
+
+
+def reset_stats():
+    for v in STATS.values():
+        v[:] = [0, 0]
 
 
 class SolveResult(NamedTuple):
@@ -95,5 +108,58 @@ def pcg(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
         best = torch.minimum(best, res)
         rz_old = rz
         it += 1
+    STATS["pcg"][0] += 1
+    STATS["pcg"][1] += it
     return SolveResult(x, res0, res,
+                       torch.tensor(it, dtype=torch.int32, device=x0.device))
+
+
+def bicgstab(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
+             rel_tol: float = 0.0, max_iter: int = 1000) -> SolveResult:
+    """Jacobi-preconditioned BiCGStab for nonsymmetric operators
+    (convection-diffusion: the k/epsilon transport equations). Right
+    preconditioning: solve A M^-1 y = b, x = M^-1 y. Stops as pcg does,
+    with 10 stalled iterations."""
+    tol = max(tol, _dtype_tol_floor(x0.dtype))
+    inv_diag = 1.0 / torch.where(diag == 0.0, torch.ones_like(diag), diag)
+
+    def prec_apply(v):
+        return apply_fn(inv_diag * v)
+
+    nf = norm_factor(apply_fn, x0, b)
+    y = diag * x0
+    r = b - prec_apply(y)
+    rhat = r
+    res0 = torch.sum(torch.abs(r)) / nf
+    p, v = torch.zeros_like(x0), torch.zeros_like(x0)
+    rho_old = alpha = omega = torch.ones((), dtype=x0.dtype,
+                                         device=x0.device)
+    res, best = res0, res0
+    stall = torch.zeros((), dtype=torch.int32, device=x0.device)
+    it = 0
+    while it < max_iter:
+        go = (res > tol) & (res > rel_tol * res0) & (stall < 10) \
+            & torch.isfinite(res)
+        if not bool(go):                                # host sync
+            break
+        rho = torch.sum(rhat * r)
+        beta = torch.zeros_like(rho) if it == 0 else \
+            _safe_ratio(rho, rho_old) * _safe_ratio(alpha, omega)
+        p = r + beta * (p - omega * v)
+        v = prec_apply(p)
+        alpha = _safe_ratio(rho, torch.sum(rhat * v))
+        s = r - alpha * v
+        t = prec_apply(s)
+        omega = _safe_ratio(torch.sum(t * s), torch.sum(t * t))
+        y = y + alpha * p + omega * s
+        r = s - omega * t
+        res = torch.sum(torch.abs(r)) / nf
+        improved = res < 0.999 * best
+        stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
+        best = torch.minimum(best, res)
+        rho_old = rho
+        it += 1
+    STATS["bicgstab"][0] += 1
+    STATS["bicgstab"][1] += it
+    return SolveResult(inv_diag * y, res0, res,
                        torch.tensor(it, dtype=torch.int32, device=x0.device))

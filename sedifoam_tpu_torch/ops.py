@@ -191,6 +191,12 @@ def div_flux(phi: FaceField, grid: Grid):
     return out / _const(grid.cell_volume, out)
 
 
+def div_flux_field(phi: FaceField, fv: FaceField, grid: Grid):
+    """fvc::div(phi, psi) given precomputed face values of psi."""
+    out = sum(_face_diff(phi[a] * fv[a], a) for a in range(3))
+    return out / _const(grid.cell_volume, out)
+
+
 def grad(c, grid: Grid, fbc: _bc.FieldBC, phi: Optional[FaceField] = None,
          t=0.0):
     """Gauss-linear cell gradient of a scalar -> (3, nx, ny, nz)."""
@@ -297,3 +303,18 @@ def limited_weights_vec(v, grid: Grid, vbc: _bc.FieldBC, phi: FaceField,
     gradv = grad_vec(v, grid, vbc, phi, t)
     return FaceField(*(_limited_weights_axis_vec(v, gradv, a, grid, phi, k)
                        for a in range(3)))
+
+
+def weighted_face_value(c, w: FaceField, grid: Grid, fbc: _bc.FieldBC,
+                        phi: Optional[FaceField] = None, t=0.0) -> FaceField:
+    """Face values using owner weights w on internal faces, BCs on boundary."""
+    lin = face_interp(c, grid, fbc, phi, t)  # supplies boundary values
+
+    def _axis(a):
+        cm = _mv(c, a)
+        wm = _mv(w[a], a)[1:-1]
+        inner = wm * cm[:-1] + (1.0 - wm) * cm[1:]
+        lm = _mv(lin[a], a)
+        return _mvback(torch.cat([lm[:1], inner, lm[-1:]], dim=0), a)
+
+    return FaceField(*(_axis(a) for a in range(3)))

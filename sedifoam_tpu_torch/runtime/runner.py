@@ -81,11 +81,17 @@ class Simulation:
         self.log = []
 
     @classmethod
-    def from_case(cls, case_dir: str, **kw):
-        raise NotImplementedError(
-            "Simulation.from_case needs the case loader (io/case.load_case, "
-            "io/foamdict, io/lammps), which is not ported yet; build the "
-            "SimConfig and state in code and call Simulation(cfg, state)")
+    def from_case(cls, case_dir: str, device=None, **kw):
+        """A Simulation of a case directory with the loader's defaults
+        (dense DEM, f64), its state on `device`; `controls` holds the
+        case's CaseControls."""
+        from sedifoam_tpu_torch.io.case import load_case
+        from sedifoam_tpu_torch.solver import initialize
+        cfg, fluid, particles, controls = load_case(case_dir, device=device)
+        sim = cls(cfg, initialize(fluid, particles, cfg), device=device,
+                  **kw)
+        sim.controls = controls
+        return sim
 
     @property
     def t(self) -> float:

@@ -1,8 +1,9 @@
 """sedifoam_tpu_torch coupling modules against sedifoam_tpu, f64 on the CPU.
 
-particle_to_eulerian, calc_asrc, smooth, the drag laws, particle_forces
-(every force switch), evolve and lift_drag_coeffs, on the bench case
-(small) with seeded random perturbations of the fluid fields.
+particle_to_eulerian, calc_asrc, calc_omega_asrc_semi, smooth, the drag
+laws, particle_forces (every force switch), evolve and lift_drag_coeffs
+(explicit and semi-implicit drag), on the bench case (small) with seeded
+random perturbations of the fluid fields.
 Tolerance: 1e-10 relative to each field's scale (measured: 1e-15 at
 worst, except the ensemble velocity Ua = smoothed(vol*U)/alpha, which
 divides by alpha at round-off level in empty cells: 5e-11 in evolve and
@@ -175,30 +176,42 @@ def test_delete_outside_scrubs_table(case):
     np.testing.assert_array_equal(np.asarray(a.nbr_idx), b.nbr_idx.numpy())
 
 
+@pytest.mark.parametrize("semi", [False, True])
 @pytest.mark.parametrize("Cl", [0.0, 0.3])
-def test_lift_drag_coeffs(case, Cl):
+def test_lift_drag_coeffs(case, Cl, semi):
     cfg_j, cfg_t, st, st_t = case
     fl_j = dataclasses.replace(cfg_j.fluid, Cl=Cl)
     fl_t = dataclasses.replace(cfg_t.fluid, Cl=Cl)
+    cc_j = dataclasses.replace(cfg_j.cloud, semi_implicit_drag=semi)
+    cc_t = dataclasses.replace(cfg_t.cloud, semi_implicit_drag=semi)
     a = jcloud.lift_drag_coeffs(st.fluid, st.particles, st.uf_smoothed,
-                                cfg_j.grid, cfg_j.bcs, cfg_j.cloud, fl_j)
+                                cfg_j.grid, cfg_j.bcs, cc_j, fl_j)
     b = tcloud.lift_drag_coeffs(st_t.fluid, st_t.particles, st_t.uf_smoothed,
-                                cfg_t.grid, cfg_t.bcs, cfg_t.cloud, fl_t)
+                                cfg_t.grid, cfg_t.bcs, cc_t, fl_t)
     for name in ("alpha", "Asrc", "drag_coef", "lift_coeff"):
         assert rel_err(getattr(a, name), getattr(b, name)) <= TOL, name
     assert bool(torch.any(b.Asrc != 0))
+    # the semi-implicit branch puts Omega on the momentum diagonal
+    assert bool(torch.any(b.drag_coef != 0)) == semi
+
+
+def test_calc_omega_asrc_semi(case):
+    cfg_j, cfg_t, st, st_t = case
+    rng = np.random.RandomState(25)
+    jd = 1e3 * (0.5 + rng.rand(st.particles.pos.shape[0]))
+    a = jtr.calc_omega_asrc_semi(st.particles, jnp.asarray(jd), cfg_j.grid)
+    b = ttr.calc_omega_asrc_semi(st_t.particles, torch.as_tensor(jd),
+                                 cfg_t.grid)
+    for x, y in zip(a, b):
+        assert rel_err(x, y) <= TOL
+    assert bool(torch.all(b[0] >= 0)) and bool(torch.any(b[0] > 0))
 
 
 def test_unported_cloud_options_raise(case):
-    """The semi-implicit drag and, through evolve, the lattice DEM
-    backend still raise, naming their config field. (Injection is
-    ported: tests/test_torch_inject.py.)"""
+    """Through evolve, the lattice DEM backend still raises, naming its
+    config field. (Injection is ported: tests/test_torch_inject.py; the
+    semi-implicit drag: test_lift_drag_coeffs.)"""
     _, cfg_t, _, st_t = case
-    cc = dataclasses.replace(cfg_t.cloud, semi_implicit_drag=True)
-    with pytest.raises(NotImplementedError, match="semi_implicit_drag"):
-        tcloud.lift_drag_coeffs(st_t.fluid, st_t.particles,
-                                st_t.uf_smoothed, cfg_t.grid,
-                                cfg_t.bcs, cc, cfg_t.fluid)
     dc = dataclasses.replace(cfg_t.dem, backend="lattice")
     with pytest.raises(NotImplementedError, match="DEMConfig.backend"):
         tcloud.evolve(st_t.fluid, st_t.particles, st_t.uf_smoothed,

@@ -1,12 +1,14 @@
 """sedifoam_tpu_torch fluid modules against sedifoam_tpu, f64 on the CPU.
 
 ops stencils, linop terms, pcg, FastDiag, assemble_ub_eqn + piso and
-fluid_step, on a uniform and a graded grid with a mix of patch kinds
-(fixedValue incl. a time table, zeroGradient, inletOutlet, cyclic, slip,
-empty). Inputs come from a seeded numpy generator. Tolerance: 1e-10
-relative to each field's scale (measured: the stencils and linop terms
-agree bitwise; 7e-16 for FastDiag; 3e-14 at worst through the PCG,
-PISO and fluid_step).
+fluid_step (with Ubar forcing, DDtU, the Cvm block and the IBM term), on
+a uniform and a graded grid with a mix of patch kinds (fixedValue incl.
+a time table, zeroGradient, inletOutlet, cyclic, slip, empty). Inputs
+come from a seeded numpy generator. Tolerance: 1e-10 relative to each
+field's scale (measured: the stencils and linop terms agree bitwise;
+7e-16 for FastDiag; 3e-14 at worst through the PCG, PISO and
+fluid_step). Ubar's compensated means alone: 1e-12 in f64 and 1e-5 in
+f32 (the block partials are summed in another order).
 """
 
 import dataclasses
@@ -259,7 +261,8 @@ def test_assemble_ub_eqn_and_piso():
 @pytest.mark.parametrize("forcing", [
     dict(mode="none"),
     dict(mode="varyingGradP", grad_pbar=2.0, period=0.05,
-         varying_type="square")])
+         varying_type="square"),
+    dict(mode="Ubar", mag_ubar=0.3)])
 def test_fluid_step(forcing):
     cfg_j, cfg_t, fs_j = _fluid_case(seed=17)
     from sedifoam_tpu.config import ChannelForcing as JCF
@@ -299,20 +302,91 @@ def test_adjust_channel_forcing(forcing):
         _close(a.grad_p_value, b.grad_p_value)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
+                                       ("float32", 1e-5)])
+@pytest.mark.parametrize("policy", ["compensated", "native"])
+def test_ubar_forcing(dtype, tol, policy):
+    """adjust_channel_forcing(mode='Ubar') alone on 3,840 cells (more
+    than one accumulation block): Ub and grad_p_value."""
+    shape = (16, 20, 12)
+    gj, gt = jgrid.Grid(*shape, dx=1e-3, dy=2e-3, dz=1.5e-3), \
+        tgrid.Grid(*shape, dx=1e-3, dy=2e-3, dz=1.5e-3)
+    rng = np.random.RandomState(30)
+    from sedifoam_tpu.config import ChannelForcing as JCF, FluidConfig as JFC
+    from sedifoam_tpu.fluid.state import init_fluid
+    from sedifoam_tpu_torch.config import (ChannelForcing as TCF,
+                                           FluidConfig as TFC)
+    forcing = dict(mode="Ubar", mag_ubar=0.3,
+                   flow_direction=(0.8, 0.0, 0.6))
+    fj = JFC(dt=1e-4, forcing=JCF(**forcing), dtype_policy=policy)
+    ft = TFC(dt=1e-4, forcing=TCF(**forcing), dtype_policy=policy)
+    fs = init_fluid(gj, dtype=jnp.float64)._replace(
+        alpha=jnp.asarray(0.4 * rng.rand(*shape)),
+        Ub=jnp.asarray(0.1 + 0.05 * rng.randn(3, *shape)),
+        Ua=jnp.asarray(0.02 * rng.randn(3, *shape)),
+        grad_p_value=jnp.asarray(1.5))
+    from torch_port_cases import f64
+    fs = jax.tree_util.tree_map(
+        lambda x: x.astype(dtype) if jnp.issubdtype(x.dtype, jnp.floating)
+        else x, f64(fs))
+    rua = (1e-3 * (1.0 + rng.rand(*shape))).astype(dtype)
+    a = jpiso.adjust_channel_forcing(fs, jnp.asarray(rua), gj, fj)
+    b = tpiso.adjust_channel_forcing(fluid_to_torch(fs), torch.as_tensor(rua),
+                                     gt, ft)
+    assert b.Ub.dtype == getattr(torch, dtype)
+    _close(a.Ub, b.Ub, tol)
+    _close(a.grad_p_value, b.grad_p_value, tol)
+    assert float(b.grad_p_value) != 1.5
+
+
+@pytest.mark.parametrize("extra", [
+    dict(),
+    dict(Cvm=0.5),
+    dict(add_ibm_force=True),
+    dict(add_ibm_force=True, ibm_relax_time=2e-3)])
+def test_fluid_step_ddtu_cvm_ibm(extra):
+    """fluid_step with DDtU on, and the Cvm block (fed by a random
+    DDtUa) or the IBM relaxation (a random indicator field)."""
+    cfg_j, cfg_t, fs_j = _fluid_case(seed=31)
+    rng = np.random.RandomState(32)
+    shp = cfg_j.grid.shape
+    fs_j = fs_j._replace(DDtUa=jnp.asarray(rng.randn(3, *shp)),
+                         ibm_indicator=jnp.asarray(
+                             (rng.rand(*shp) > 0.7) * rng.rand(*shp)))
+    fj = dataclasses.replace(cfg_j.fluid, **extra)
+    ft = dataclasses.replace(cfg_t.fluid, **extra)
+    fs_t = fluid_to_torch(fs_j)
+    for _ in range(2):
+        fs_j = jstep.fluid_step(fs_j, cfg_j.grid, cfg_j.bcs, fj,
+                                need_ddtu=True)
+        fs_t = tstep.fluid_step(fs_t, cfg_t.grid, cfg_t.bcs, ft,
+                                need_ddtu=True)
+    for name in ("p", "Ub", "phia", "phib", "phi", "DDtUa", "DDtUb"):
+        _close(getattr(fs_j, name), getattr(fs_t, name))
+    assert bool(torch.any(fs_t.DDtUb != 0))
+
+
+def test_ddtu_alone():
+    cfg_j, cfg_t, fs_j = _fluid_case(seed=33)
+    rng = np.random.RandomState(34)
+    shp = cfg_j.grid.shape
+    fs_j = fs_j._replace(Ub_old=fs_j.Ub + 0.01 * jnp.asarray(
+        rng.randn(3, *shp)), Ua_old=jnp.asarray(0.01 * rng.randn(3, *shp)),
+        phia=jops.flux_of(fs_j.Ua, cfg_j.grid, cfg_j.bcs.Ua))
+    a = jpiso.ddtu(fs_j, cfg_j.grid, cfg_j.bcs, cfg_j.fluid)
+    b = tpiso.ddtu(fluid_to_torch(fs_j), cfg_t.grid, cfg_t.bcs, cfg_t.fluid)
+    _close(a.DDtUa, b.DDtUa)
+    _close(a.DDtUb, b.DDtUb)
+
+
 def test_unported_features_raise():
+    """DNS spectral forcing (fluid/bodyforce.py) still raises, naming
+    its config field."""
     _, cfg_t, fs_j = _fluid_case()
     fs_t = fluid_to_torch(fs_j)
-    g, bcs = cfg_t.grid, cfg_t.bcs
-    from sedifoam_tpu_torch.config import ChannelForcing, TurbulenceConfig
-    for bad in (dict(Cvm=0.5), dict(add_ibm_force=True),
-                dict(add_dns_force=True),
-                dict(turbulence=TurbulenceConfig(model="kEpsilon")),
-                dict(forcing=ChannelForcing(mode="Ubar", mag_ubar=0.1))):
-        cfg = dataclasses.replace(cfg_t.fluid, **bad)
-        with pytest.raises(NotImplementedError):
-            tstep.fluid_step(fs_t, g, bcs, cfg)
-    with pytest.raises(NotImplementedError):
-        tstep.fluid_step(fs_t, g, bcs, cfg_t.fluid, need_ddtu=True)
+    cfg = dataclasses.replace(cfg_t.fluid, add_dns_force=True)
+    with pytest.raises(NotImplementedError, match="add_dns_force"):
+        tstep.fluid_step(fs_t, cfg_t.grid, cfg_t.bcs, cfg)
 
 
 @pytest.mark.parametrize("graded", [False, True])

@@ -278,7 +278,7 @@ def test_case_level_resume_probes_bitwise(tmp_path):
                                   sim3.state.particles.vel.numpy())
 
 
-def test_timing_split_and_from_case():
+def test_timing_split_and_from_case(tmp_path):
     sim, dt = _sim()
     sim.run(2 * dt)
     before = bridge.sim_state_to_numpy(sim.state)
@@ -287,8 +287,15 @@ def test_timing_split_and_from_case():
     assert all(v > 0 for v in split.values())
     # the split leaves the simulation's state as it was
     assert_tree_close(before, bridge.sim_state_to_numpy(sim.state), 0.0)
-    with pytest.raises(NotImplementedError, match="case loader"):
-        Simulation.from_case("any")
+    # from_case loads a case directory with the reference's defaults
+    # (dense, f64) and its probes argument (3 steps against the built
+    # case: tests/test_torch_channel.py)
+    case = cases.write_xiaocase3(str(tmp_path / "xiaocase3"))
+    loaded = Simulation.from_case(case, probe_locations=PROBE)
+    assert loaded.cfg.dem.backend == "dense"
+    assert loaded.state.fluid.p.dtype == torch.float64
+    assert loaded.controls.write_interval == 1e-3
+    assert loaded.probes is not None and loaded.t == 0.0
 
 
 # -- active-window stepping ------------------------------------------------
