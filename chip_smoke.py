@@ -14,8 +14,15 @@ which passes or exits nonzero:
    TF32 off;
 3. kernel vs its plain PyTorch version at the bench shape, on clones of
    one state with pair and wall contacts: max error relative to each
-   output's scale <= 1e-5 (f32) and 1e-12 (f64), also periodic and
-   shearupdate=False; both timed with CUDA events;
+   output's scale <= 1e-5 (f32) and 1e-12 (f64), also periodic,
+   shearupdate=False and rebuilt at K = 20, and a second launch on a
+   clone equal bit for bit; then at five shapes (bench f32 and f64, the
+   channel's particles at N = 8,192, K = 16, the injection window's
+   N = 2,048 and 65,536): the kernel's device time (torch.profiler,
+   100 launches on clones), its bound (bytes each input read once and
+   each output written once, counted from the state, over HBM's rate),
+   the share of it, the empty kernel's time (the launch floor) and host
+   microseconds per call;
 4. main path: initialize, 1 warm-up and 10 timed coupled steps
    (particle-substeps/s), a per-phase split over 3 more steps; the state
    must be finite, nbr_dropped 0, alpha in [0, max_possible_alpha] up to
@@ -56,7 +63,8 @@ which passes or exits nonzero:
    `python -m sedifoam_tpu_torch.run_case` on it with --device cuda;
 10. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, runner, inject and case,
-   with the N and K it ran at), and last {"ok": true, "device": {...}}.
+   with the N and K it ran at; device time, bound, host time and floor
+   per shape), and last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one card; builds into build/kernels/.
 """
@@ -82,6 +90,12 @@ CASE_SETTLE = 5           # steps without forcing (the validator's settle)
 CASE_STEPS = 10           # Ubar steps after them
 CASE_OVERLAP = 2e-6       # bed layers pressed together: contacts at once
 ENTRY_STEPS = 5
+PROFILE_REPS = 100        # launches per device-time measurement
+PROFILE_TRIES = 3         # profiles before one that lost events fails
+HOST_CALLS = 1000         # wrapper calls per host-time measurement
+HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA's data sheet
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # outside tensor cores
+FLOPS_PER_CONTACT = 150   # geometry and contact law of one touching slot
 
 
 def fail(msg):
@@ -161,6 +175,158 @@ def run_steps(sim, n, **kw):
         fail(f"runner stopped at step {int(sim.state.fluid.step)}, not {n}")
 
 
+def device_us(launch, reps=PROFILE_REPS):
+    """Mean device microseconds of launch(r) over r = 0 .. reps-1: the
+    self device time of every kernel that ran, from torch.profiler; by
+    CUDA events around a CUDA graph of the launches where the profiler
+    saw no device time. Each kernel that ran must be seen reps times: a
+    profile that lost events is taken again, at most PROFILE_TRIES
+    times. Returns (us, how, kernel names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    launch(0)
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for r in range(reps):
+                launch(r)
+            torch.cuda.synchronize()
+        total, counts = 0.0, {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            t = e.self_cuda_time_total if t is None else t
+            if t > 0:
+                total += t
+                counts[e.key.split("(")[0]] = e.count
+        if not counts:
+            break
+        if all(c == reps for c in counts.values()):
+            return total / reps, "profiler", sorted(counts)
+        say(f"profiler: kernels seen {counts} times, not {reps}: again")
+    else:
+        fail(f"the profiler lost kernel events in {PROFILE_TRIES} profiles")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for r in range(reps):
+            launch(r)
+    graph.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) * 1e3 / reps, "CUDA graph", []
+
+
+def chain_bound(p, walls, periodic_len):
+    """The least time one contact_chain call on state p could take on
+    the card: each input byte read once, each output byte written once,
+    over HBM's rate, against FLOPS_PER_CONTACT per contact over the
+    peak rate of the dtype. Per particle: its row (pos, vel, omega,
+    radius, mass, active), its (K,) index column, the shear written (3K
+    values), the wall shear written (3W), force and torque; plus three
+    values of history read for each touching slot and each touching
+    wall, counted from this state."""
+    import torch
+    n, K, W = p.n_capacity, p.nbr_idx.shape[0], len(walls)
+    b = p.pos.element_size()
+    idx = p.nbr_idx.long()
+    j = idx.clamp(0, n - 1)
+    d = p.pos[None] - p.pos[j]
+    for a, L in enumerate(periodic_len or ()):
+        if L is not None:
+            d[..., a] -= L * torch.round(d[..., a] / L)
+    radsum = p.radius[None] + p.radius[j]
+    touch = (idx >= 0) & (idx < n) & p.active[None] & \
+        ((d * d).sum(-1) < radsum * radsum)
+    pairs = int(touch.sum())
+    wall_contacts = 0
+    for w in walls:
+        x = p.pos[:, w.axis]
+        lo = w.lo if w.lo is not None else -1e30
+        hi = w.hi if w.hi is not None else 1e30
+        da = torch.where(x - lo < hi - x, x - lo, x - hi)
+        wall_contacts += int((p.active & (da * da <= p.radius ** 2)
+                              & (da * da > 0)).sum())
+    contacts = pairs + wall_contacts
+    nbytes = n * (11 * b + 1 + 4 * K + 3 * K * b + 3 * W * b + 6 * b) + \
+        3 * b * contacts
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = FLOPS_PER_CONTACT * contacts / \
+        PEAK_FLOPS[str(p.pos.dtype).split(".")[-1]]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "touching_slots": pairs,
+            "wall_contacts": wall_contacts}
+
+
+def floor_us():
+    """Device time of the kernel library's empty kernel (one warp): the
+    launch floor."""
+    import torch
+    from sedifoam_tpu_torch.dem import fused
+    lib = fused._library()
+
+    def launch(_):
+        err = lib.contact_chain_empty(torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"empty kernel: {lib.contact_chain_error_string(err)}")
+    return device_us(launch)[0]
+
+
+def chain_launcher(p, cfg_dem):
+    """launch(r): the kernel on the r-th of PROFILE_REPS clones of p's
+    contact history, through the wrapper. Callers restore the launch
+    counts."""
+    from sedifoam_tpu_torch.dem import fused
+    walls = cfg_dem.walls if fused.walls_fusible(cfg_dem.walls) else ()
+    args = (cfg_dem.pair, cfg_dem.dt, p.nbr_idx, True,
+            cfg_dem.periodic_len(), walls)
+    clones = [p._replace(shear=p.shear.clone(),
+                         wall_shear=p.wall_shear.clone())
+              for _ in range(PROFILE_REPS)]
+    return lambda r: fused._launch(clones[r], *args)
+
+
+def measure_chain(label, p, cfg_dem, floor):
+    """The kernel's device time (profiler, PROFILE_REPS launches on
+    clones of p), its bound, share of the bound and of the launch floor,
+    and host microseconds per contact_chain call (HOST_CALLS calls, no
+    sync inside the loop). Launches made here do not count."""
+    import torch
+    from sedifoam_tpu_torch.dem import fused
+    walls = cfg_dem.walls if fused.walls_fusible(cfg_dem.walls) else ()
+    plen = cfg_dem.periodic_len()
+    launches, sizes = fused.LAUNCHES, fused.LAUNCH_SIZES.copy()
+    dev, how, names = device_us(chain_launcher(p, cfg_dem))
+    q = p._replace(shear=p.shear.clone(), wall_shear=p.wall_shear.clone())
+    args = (cfg_dem.pair, cfg_dem.dt, q.nbr_idx, True, plen, walls)
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fused.contact_chain(q, *args)
+    host = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    fused.LAUNCHES, fused.LAUNCH_SIZES = launches, sizes
+    out = {"shape": label, "N": p.n_capacity, "K": p.nbr_idx.shape[0],
+           "W": len(walls), "dtype": str(p.pos.dtype).split(".")[-1],
+           "slot_warps": fused._library().contact_chain_slot_warps(
+               p.n_capacity, int(p.pos.dtype == torch.float64)),
+           "device_ms": dev * 1e-3, "host_us": host, "floor_ms": floor * 1e-3,
+           **chain_bound(p, walls, plen)}
+    out["share_of_bound"] = out["bound_ms"] / out["device_ms"]
+    out["x_floor"] = out["device_ms"] / out["floor_ms"]
+    say(f"kernel [{label}] N={out['N']} K={out['K']} W={out['W']} "
+        f"{out['dtype']}, {out['slot_warps']} slot warps: device "
+        f"{out['device_ms']:.5f} ms ({how}, mean of {PROFILE_REPS}; {', '.join(names)}); bound {out['bound_ms']:.5f} "
+        f"ms by {out['bound_by']} ({out['bytes']} B, "
+        f"{out['touching_slots']} touching slots, {out['wall_contacts']} "
+        f"wall contacts), {100 * out['share_of_bound']:.1f}% of it; floor "
+        f"{out['floor_ms']:.5f} ms, device = {out['x_floor']:.2f} x floor; "
+        f"host {host:.2f} us per call (mean of {HOST_CALLS})")
+    return out
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds of fn() over reps runs, by CUDA events."""
     import torch
@@ -213,9 +379,12 @@ def phase_build():
     say(f"build: contact_chain.cu built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     log = _build.library_path("contact_chain").with_suffix(".log")
+    kernel = ""
     for line in log.read_text().splitlines() if log.exists() else ():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]  # mangled: chain_kernel<T, S>
+        elif "registers" in line or "spill" in line:
+            say(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
     full_f32_precision()
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32
@@ -261,10 +430,17 @@ def compare_chain(label, p, cfg_dem, shearupdate, tol, timing=False,
             cfg_dem.periodic_len(), walls)
     pa = tree_map(torch.clone, p)
     pb = tree_map(torch.clone, p)
+    pc = tree_map(torch.clone, p)
     ref = fused.contact_chain_reference(pa, *args)
     launches = fused.LAUNCHES
     got = fused._launch(pb, *args)
+    again = fused._launch(pc, *args)
     torch.cuda.synchronize()
+    # the sum over slots runs in a fixed order: a second launch on a
+    # clone gives the same bits
+    if not all(torch.equal(x, y) for x, y in zip(got, again)
+               if x is not None):
+        fail(f"{label}: two launches on clones of one state differ")
     errs, abs_err = {}, 0.0
     for name, a, b in zip(("force", "torque", "shear", "wall_shear"),
                           ref, got):
@@ -282,7 +458,8 @@ def compare_chain(label, p, cfg_dem, shearupdate, tol, timing=False,
         abs_err = max(abs_err, float((a.double() - b.double()).abs().max()))
     worst = max(errs.values())
     say(f"kernel vs plain [{label}]: " + ", ".join(
-        f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {tol:.0e})")
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {tol:.0e}); "
+        "a second launch on a clone equal bit for bit")
     if worst > tol:
         fail(f"{label}: kernel disagrees with the plain chain: {errs}")
     out = {"max_abs_err": abs_err}
@@ -292,7 +469,8 @@ def compare_chain(label, p, cfg_dem, shearupdate, tol, timing=False,
             lambda: fused.contact_chain_reference(pa, *args), 10)
         say(f"contact chain at N={p.n_capacity} K={p.nbr_idx.shape[0]} "
             f"W={len(walls)}: kernel {out['ms']:.4f} ms, plain "
-            f"{out['plain_ms']:.4f} ms (CUDA events)")
+            f"{out['plain_ms']:.4f} ms (CUDA events around the Python loop "
+            "of calls: host-bound, the wrapper included)")
     fused.LAUNCHES = launches          # comparison launches do not count
     return out
 
@@ -319,7 +497,47 @@ def phase_kernel(dev):
         p._replace(wall_shear=p.wall_shear[:, 1:2].contiguous()), dem_p,
         force=True)
     compare_chain("f32 periodic", pp, dem_p, True, 1e-5)
+    # the lattice rebuilt with 20 slots
+    dem_20 = dataclasses.replace(cfg.dem, nbr_k=20)
+    compare_chain("f32 K=20", integrate.maybe_rebuild_neighbors(
+        p, dem_20, force=True), dem_20, True, 1e-5)
+
+    # device time, bound and host time at the shapes the paths give it:
+    # the bench lattice; the channel; the injection window's first and
+    # last N, filled with the bench lattice's first N particles (the
+    # column's own state barely touches)
+    from sedifoam_tpu_torch.runtime.window import window_slice
+    ccfg, cp = channel_kernel_case(dev)
+    shapes = [("bench f32", p, cfg.dem), ("bench f64", p64, cfg.dem),
+              ("channel f32", cp, ccfg.dem),
+              ("window 2048", window_slice(p, 2048), cfg.dem),
+              ("window 65536", window_slice(p, 65536), cfg.dem)]
+    floor = floor_us()
+    res["shapes"] = [measure_chain(label, q, dem, floor)
+                     for label, q, dem in shapes]
     return res
+
+
+def channel_kernel_case(dev):
+    """The channel's particles as the case loads them (6 layers pressed
+    CASE_OVERLAP into each other, capacity 8,192, K = 16, periodic x/z,
+    the y walls), written on a coarse mesh (the DEM state does not depend
+    on it), after setup_forces and KERNEL_SUBSTEPS substeps."""
+    import torch
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.dem import integrate
+    from sedifoam_tpu_torch.io.case import load_case
+    with tempfile.TemporaryDirectory() as tmp:
+        case = cases.write_channel_case(
+            os.path.join(tmp, "channel"), counts=(14, 13, 6),
+            layers=cases.CHANNEL_FULL["layers"], overlap=CASE_OVERLAP)
+        cfg, _, p, _ = load_case(case, backend="binned", dtype=torch.float32,
+                                 capacity=8192, device=dev)
+    if p.nbr_idx.shape[0] != 16 or cfg.dem.periodic != (True, False, True):
+        fail(f"channel kernel case: K {p.nbr_idx.shape[0]}, periodic "
+             f"{cfg.dem.periodic}")
+    p = integrate.setup_forces(p, cfg.dem)
+    return cfg, integrate.run_dem(p, cfg.dem, KERNEL_SUBSTEPS)
 
 
 def phase_main_path(dev):
@@ -891,15 +1109,18 @@ def main():
     ran_at += [{"N": n, "K": 8, "launches": c} for n, c in by_n.items()]
     ran_at += [{"N": n, "K": case["K"], "launches": case["launches"]}
                for n in case["N"]]
+    bench = k["shapes"][0]
     say(json.dumps({"kernels": [{
         "name": "contact_chain", "route": "cuda",
         "source": "sedifoam_tpu_torch/csrc/contact_chain.cu",
         "replaces": "sedifoam_tpu/dem/fused.py:33",
         "launches": launches, "max_abs_err": max(k["max_abs_err"],
                                                  case["max_abs_err"]),
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "case_ms": case["ms"], "case_plain_ms": case["plain_ms"],
-        "ran_at": ran_at}]}))
+        "ms": bench["device_ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
+        "library_ms": None, "wrapper_ms": k["ms"],
+        "case_wrapper_ms": case["ms"], "case_plain_ms": case["plain_ms"],
+        "shapes": k["shapes"], "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

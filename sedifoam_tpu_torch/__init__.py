@@ -19,6 +19,20 @@ from sedifoam_tpu_torch.grid import Grid  # noqa: F401
 __version__ = "0.1.0"
 
 
+def default_device(device=None) -> torch.device:
+    """`device` as a torch.device; with none given, the CUDA card. The
+    entry points (io.case.load_case, Simulation.from_case, run_case) and
+    the builders (CoupledStep, make_step_fn, bench_case.build_state,
+    cases.xiaocase3, cases.inject_case) run on the card unless asked for
+    the CPU: with no card this raises rather than carrying on there."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" (run_case: '
+                           '--device cpu) to run on the CPU')
+    return torch.device("cuda")
+
+
 def full_f32_precision():
     """Turn TF32 off, process-wide, for matmuls and cuDNN. The shear
     carry-over (dem/neighbor.carry_over_shear) and the FastDiag transforms

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sedifoam_tpu_torch import bc
+from sedifoam_tpu_torch import bc, default_device
 from sedifoam_tpu_torch.config import (CloudConfig, DEMConfig, FluidConfig,
                                        PISOConfig, PairParams, WallSpec)
 from sedifoam_tpu_torch.dem.state import make_particles
@@ -74,7 +74,9 @@ def build_config(n_particles=131072, nx=32, ny=64, nz=32,
 def build_state(cfg: SimConfig, n_particles: int, dtype=torch.float32,
                 device=None):
     """(fluid, particles) before initialize(): the jittered lattice in
-    the lower part of the bed, fluid at the inlet velocity."""
+    the lower part of the bed, fluid at the inlet velocity. On `device`:
+    by default the CUDA card; device="cpu" for the CPU."""
+    device = default_device(device)
     r = 5e-4
     L = cfg.grid.lengths
     rng = np.random.RandomState(42)

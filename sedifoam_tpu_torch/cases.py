@@ -31,7 +31,7 @@ import os
 import numpy as np
 import torch
 
-from sedifoam_tpu_torch import bc
+from sedifoam_tpu_torch import bc, default_device
 from sedifoam_tpu_torch.config import (CloudConfig, DEMConfig, FluidConfig,
                                        PISOConfig, PairParams, WallSpec)
 from sedifoam_tpu_torch.dem.state import make_particles
@@ -41,7 +41,9 @@ from sedifoam_tpu_torch.solver import SimConfig, adjust_dem_timestep
 
 
 def xiaocase3(dtype=torch.float64, device=None):
-    """(cfg, fluid, particles) of xiaocase3, before initialize()."""
+    """(cfg, fluid, particles) of xiaocase3, before initialize(), on
+    `device` (by default the CUDA card; device="cpu" for the CPU)."""
+    device = default_device(device)
     # blockMeshDict: 4x4x0.5 mm box, 10x10x1 cells
     grid = Grid(nx=10, ny=10, nz=1, dx=4e-4, dy=4e-4, dz=5e-4)
 
@@ -128,7 +130,9 @@ def inject_case(nx=32, ny=64, nz=32, capacity=65536, dtype=torch.float32,
     initialize(): one seed particle mid-column; every add (every second
     fluid step: add_interval = dt) puts one particle (d = 0.2 mm) at
     each of the nx*nz inlet cell centres, moving up at the inlet
-    velocity (1.2 m/s: 0.24 mm per add interval, more than a diameter)."""
+    velocity (1.2 m/s: 0.24 mm per add interval, more than a diameter).
+    On `device`: by default the CUDA card; device="cpu" for the CPU."""
+    device = default_device(device)
     dx = 2e-3
     grid = Grid(nx=nx, ny=ny, nz=nz, dx=dx, dy=dx, dz=dx)
     L = grid.lengths

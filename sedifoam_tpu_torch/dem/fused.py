@@ -2,11 +2,12 @@
 
 Port of ``sedifoam_tpu/dem/fused.py`` (the TPU kernel ``_kernel``,
 launched by ``chain_forces``, and its caller
-``pair_forces_binned_fused``). For each particle the kernel
-(``csrc/contact_chain.cu``) gathers its K table partners itself, runs the
-Hertz/Hooke-history law per slot, sums force and torque, and runs the
-static plane walls in the same pass. Shear and wall shear are updated in
-place.
+``pair_forces_binned_fused``). The kernel (``csrc/contact_chain.cu``)
+gathers each particle's K table partners itself, runs the
+Hertz/Hooke-history law per slot, sums force and torque over the slots
+in k order (no atomics: two launches on one input agree bit for bit),
+and runs the static plane walls in the same pass. Shear and wall shear
+are updated in place. The source's note gives its bound and its design.
 
 ``contact_chain`` is the wrapper: on a CUDA tensor it launches the
 kernel (or raises); on a CPU tensor, and only there, it runs
@@ -20,6 +21,7 @@ count N (the runner's active window launches it at several N).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 
@@ -136,6 +138,12 @@ def _params(n, K, dt, shearupdate, periodic_len, params, walls) -> _Chain:
     return cp
 
 
+# the parameter block of each (n, K, dt, shearupdate, periodic_len,
+# params, walls) seen, built once: all are numbers, tuples or frozen
+# dataclasses. The kernel reads the block only during its launch.
+_chain_params = functools.lru_cache(maxsize=256)(_params)
+
+
 def _check(name, t, shape, dtype, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -151,7 +159,7 @@ def _check(name, t, shape, dtype, device):
 @functools.lru_cache(maxsize=None)
 def _library():
     """Build (at first use) and bind the kernel's library, once per
-    process."""
+    process; check that its parameter block matches this module's."""
     lib = _build.load("contact_chain")
     ptr = ctypes.c_void_p
     lib.contact_chain_params_size.argtypes = []
@@ -159,6 +167,10 @@ def _library():
     for fn in (lib.contact_chain_f32, lib.contact_chain_f64):
         fn.argtypes = [ptr] * 13
         fn.restype = ctypes.c_int
+    lib.contact_chain_slot_warps.argtypes = [ctypes.c_int64, ctypes.c_int]
+    lib.contact_chain_slot_warps.restype = ctypes.c_int
+    lib.contact_chain_empty.argtypes = [ptr]
+    lib.contact_chain_empty.restype = ctypes.c_int
     lib.contact_chain_error_string.argtypes = [ctypes.c_int]
     lib.contact_chain_error_string.restype = ctypes.c_char_p
     size = lib.contact_chain_params_size()
@@ -190,13 +202,16 @@ def check_inputs(state, idx, n_walls):
 
 
 def _launch(state, params, dt, idx, shearupdate, periodic_len, walls):
+    """Launch the kernel on the current stream."""
     global LAUNCHES
     W = len(walls)
     check_inputs(state, idx, W)
     x = state.pos
     dtype, device = x.dtype, x.device
     n, K = state.n_capacity, idx.shape[0]
-    cp = _params(n, K, dt, shearupdate, periodic_len, params, walls)
+    cp = _chain_params(n, K, float(dt), bool(shearupdate),
+                       None if periodic_len is None else tuple(periodic_len),
+                       params, tuple(walls))
 
     lib = _library()
     fn = lib.contact_chain_f32 if dtype == torch.float32 \
@@ -205,7 +220,9 @@ def _launch(state, params, dt, idx, shearupdate, periodic_len, walls):
     torque = torch.empty((n, 3), dtype=dtype, device=device)
     shear = state.shear
     wall_shear = state.wall_shear if W else None
-    with torch.cuda.device(device):
+    # entering the device costs host time: only when it is not current
+    here = device.index is None or device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.addressof(cp), x.data_ptr(), state.vel.data_ptr(),
                  state.omega.data_ptr(), state.radius.data_ptr(),

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from sedifoam_tpu_torch import bc as _bc
+from sedifoam_tpu_torch import default_device
 from sedifoam_tpu_torch.config import (ChannelForcing, CloudConfig, DEMConfig,
                                        FluidConfig, PISOConfig,
                                        TurbulenceConfig)
@@ -505,7 +506,8 @@ def load_case(case_dir: str, capacity: Optional[int] = None,
               backend: str = "dense", neighbor_k: Optional[int] = None,
               dtype=torch.float64, embed_ogrid: bool = False, device=None):
     """Load a reference case -> (SimConfig, FluidState, ParticleState,
-    CaseControls) with the state's tensors in `dtype` on `device`.
+    CaseControls) with the state's tensors in `dtype` on `device` (by
+    default the CUDA card; device="cpu" for the CPU).
     backend: DEM contact backend ('dense' | 'binned'; the experimental
     'lattice' backend is not ported).
 
@@ -515,6 +517,7 @@ def load_case(case_dir: str, capacity: Optional[int] = None,
     (circular outer wall -> box walls, matching the case's own DEM box),
     so it must be an explicit choice.
     """
+    device = default_device(device)
     if backend == "lattice":
         raise NotImplementedError(
             "load_case(backend='lattice'): the lattice DEM backend "

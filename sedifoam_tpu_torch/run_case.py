@@ -9,7 +9,9 @@ script's keys.
 
   python -m sedifoam_tpu_torch.run_case CASE_DIR [--t-end T]
         [--out-dir DIR] [--backend dense|binned] [--f64]
-        [--dump snapshot.dump] [--device cuda]
+        [--dump snapshot.dump] [--device cpu]
+
+Runs on the CUDA card unless --device names another device.
 """
 
 import argparse
@@ -48,9 +50,9 @@ def main(argv=None):
                     help="also write OpenFOAM-ASCII field files into the "
                          "time directories (readable by the reference's "
                          "own post-processing)")
-    ap.add_argument("--device", default="cpu",
+    ap.add_argument("--device", default="cuda",
                     help="torch device of the state and the step "
-                         "(e.g. cuda)")
+                         "(default cuda; cpu to run on the CPU)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -62,6 +64,8 @@ def main(argv=None):
 
     dtype = torch.float64 if args.f64 else torch.float32
     device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA device: pass --device cpu to run on the CPU")
     cfg, fluid, particles, controls = load_case(args.case_dir,
                                                 backend=args.backend,
                                                 dtype=dtype, device=device)

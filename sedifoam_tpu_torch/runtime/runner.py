@@ -21,6 +21,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from sedifoam_tpu_torch import default_device
 from sedifoam_tpu_torch.runtime import checkpoint as _ckpt
 from sedifoam_tpu_torch.runtime import diagnostics as _diag
 from sedifoam_tpu_torch.runtime.probes import Probes
@@ -83,10 +84,12 @@ class Simulation:
     @classmethod
     def from_case(cls, case_dir: str, device=None, **kw):
         """A Simulation of a case directory with the loader's defaults
-        (dense DEM, f64), its state on `device`; `controls` holds the
-        case's CaseControls."""
+        (dense DEM, f64), its state on `device` (by default the CUDA card;
+        device="cpu" for the CPU); `controls` holds the case's
+        CaseControls."""
         from sedifoam_tpu_torch.io.case import load_case
         from sedifoam_tpu_torch.solver import initialize
+        device = default_device(device)
         cfg, fluid, particles, controls = load_case(case_dir, device=device)
         sim = cls(cfg, initialize(fluid, particles, cfg), device=device,
                   **kw)

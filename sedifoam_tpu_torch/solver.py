@@ -114,11 +114,13 @@ class CoupledStep(nn.Module):
     """coupled_step with its constant operators built once: the
     diffusion-smoothing solver and the pressure preconditioner are
     buffers-only submodules, so .to(device) moves them. forward(state)
-    is one coupled step."""
+    is one coupled step. Built on `device`: by default the CUDA card;
+    device="cpu" for the CPU."""
 
     def __init__(self, cfg: SimConfig, dtype=torch.float64, device=None):
         super().__init__()
-        from sedifoam_tpu_torch import full_f32_precision
+        from sedifoam_tpu_torch import default_device, full_f32_precision
+        device = default_device(device)
         full_f32_precision()
         self.cfg = cfg
         self.smoother = fastsolve.smoothing_solver(

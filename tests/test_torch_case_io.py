@@ -145,7 +145,8 @@ def _load_both(path, **kw):
         else jnp.float64
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        return jcase.load_case(path, **jkw), tcase.load_case(path, **kw)
+        return jcase.load_case(path, **jkw), tcase.load_case(
+            path, **{"device": "cpu", **kw})
 
 
 @pytest.mark.parametrize("backend", ["dense", "binned"])
@@ -191,8 +192,8 @@ def test_xiaocase3_directory_is_the_built_case(case_dirs):
     loader also fills fields that only other paths read: the binned
     table's sizing and the DEM box (the dense backend reads neither) and
     all-zero injection boxes (read only with injection on)."""
-    ct, ft, pt, _ = tcase.load_case(case_dirs["xiaocase3"])
-    cb, fb, pb = cases.xiaocase3()
+    ct, ft, pt, _ = tcase.load_case(case_dirs["xiaocase3"], device="cpu")
+    cb, fb, pb = cases.xiaocase3(device="cpu")
     assert ct.grid == cb.grid and ct.bcs == cb.bcs and ct.fluid == cb.fluid
     loader_only = {"nbr_k", "max_per_bin", "cutoff", "skin", "audit_ring",
                    "domain_hi"}
@@ -209,7 +210,8 @@ def test_xiaocase3_directory_is_the_built_case(case_dirs):
 
 def test_lattice_backend_refused(case_dirs):
     with pytest.raises(NotImplementedError, match="lattice"):
-        tcase.load_case(case_dirs["xiaocase3"], backend="lattice")
+        tcase.load_case(case_dirs["xiaocase3"], backend="lattice",
+                        device="cpu")
 
 
 @pytest.mark.parametrize("name", ["LubricationParams", "CaseControls",
@@ -288,9 +290,10 @@ def test_mesh_readers_match_reference(tmp_path, case_dirs, mesh):
 def test_errors_match_reference(tmp_path, case_dirs):
     """UnsupportedMeshError for an O-grid without the opt-in and for a
     non-stacked block layout; MissingICError for an absent data file."""
+    cpu = {jcase: {}, tcase: {"device": "cpu"}}
     for m in (jcase, tcase):
         with pytest.raises(m.UnsupportedMeshError, match="embed_ogrid"):
-            m.load_case(case_dirs["ogrid"])
+            m.load_case(case_dirs["ogrid"], **cpu[m])
     bad = _bmd(tmp_path, """
 vertices ( (0 0 0) (1 0 0) (1 1 0) (0 1 0) (0 0 1) (1 0 1) (1 1 1) (0 1 1)
            (2 0 0) (2 0.5 0) (2 0.5 1) (2 0 1) (1 0.5 0) (1 0.5 1) );
@@ -306,7 +309,7 @@ boundary ();
     os.remove(os.path.join(missing, "IC_uniform.in"))
     for m in (jcase, tcase):
         with pytest.raises(m.MissingICError, match="IC_uniform.in"):
-            m.load_case(missing)
+            m.load_case(missing, **cpu[m])
     assert issubclass(tcase.MissingICError, ValueError)
 
 

@@ -16,6 +16,9 @@ sedifoam_tpu on the CPU.
   Simulation(cfg, state) of cases.xiaocase3() bit for bit.
 - python -m sedifoam_tpu_torch.run_case prints scripts/run_case.py's
   JSON summary keys (a subprocess on the CPU).
+- The three entry points and the builders run on the CUDA card unless
+  asked for the CPU: with no card and no device they raise, naming the
+  CPU's option.
 """
 
 import dataclasses
@@ -56,7 +59,7 @@ def test_channel_three_steps_match_reference(tmp_path):
                                     counts=(14, 13, 6), layers=2,
                                     overlap=2e-6)
     cj, fj, pj, _ = jload(case, backend="binned", dtype=jnp.float64)
-    ct, ft, pt, _ = tload(case, backend="binned")
+    ct, ft, pt, _ = tload(case, backend="binned", device="cpu")
     cj, ct = _semi(cj), _semi(ct)
     assert tsolver.need_ddtu(ct) and ct.dem.nbr_k == 16
     frozen = pt.ptype == 2
@@ -66,7 +69,7 @@ def test_channel_three_steps_match_reference(tmp_path):
     step_j = jax.jit(lambda s: jcoupled(s, cj))
     linsolve.reset_stats()
     launches = fused.LAUNCHES
-    step_t = tsolver.CoupledStep(ct)
+    step_t = tsolver.CoupledStep(ct, device="cpu")
     st = step_t.initialize(ft, pt)
     for n in range(3):
         sj, st = step_j(sj), step_t(st)
@@ -100,7 +103,7 @@ def test_from_case_matches_built_xiaocase3(tmp_path):
     assert sim.controls.dt == 2e-5 and sim.controls.end_time == 0.005
     assert sim.cfg.dem.backend == "dense"
     assert sim.state.fluid.p.dtype == torch.float64
-    cfg, fluid, particles = cases.xiaocase3()
+    cfg, fluid, particles = cases.xiaocase3(device="cpu")
     built = Simulation(cfg, tsolver.initialize(fluid, particles, cfg),
                        device="cpu")
     for s in (sim, built):
@@ -117,7 +120,8 @@ def test_run_case_module_prints_summary(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run(
         [sys.executable, "-m", "sedifoam_tpu_torch.run_case", case, "--f64",
-         "--backend", "dense", "--t-end", "6e-5", "--out-dir", str(out)],
+         "--backend", "dense", "--t-end", "6e-5", "--out-dir", str(out),
+         "--device", "cpu"],
         capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
     assert res.returncode == 0, res.stderr
     summary = json.loads(res.stdout.strip().splitlines()[-1])
@@ -128,3 +132,29 @@ def test_run_case_module_prints_summary(tmp_path):
     assert summary["t_end"] == 6e-5
     probes = np.load(out / "probes.npz")
     assert probes["p"].shape[0] == 1 and np.isfinite(probes["p"]).all()
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(
+        tmp_path, monkeypatch, capsys):
+    """load_case, Simulation.from_case and run_case, and the builders
+    (CoupledStep, make_step_fn, bench_case.build_state, cases.xiaocase3,
+    cases.inject_case), given no device use the CUDA card; where there is
+    none they raise and name device="cpu" / --device cpu, and nothing
+    runs on the CPU."""
+    from sedifoam_tpu_torch import bench_case, run_case
+    case = cases.write_xiaocase3(str(tmp_path / "xiaocase3"))
+    cfg = cases.xiaocase3(device="cpu")[0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: tload(case), cases.xiaocase3,
+                  lambda: cases.inject_case(nx=4, ny=8, nz=4, capacity=64),
+                  lambda: bench_case.build_state(cfg, 1),
+                  lambda: tsolver.CoupledStep(cfg),
+                  lambda: tsolver.make_step_fn(cfg)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        Simulation.from_case(case)
+    with pytest.raises(SystemExit) as exit_:
+        run_case.main([case, "--t-end", "6e-5"])
+    assert exit_.value.code == 2
+    assert "--device cpu" in capsys.readouterr().err

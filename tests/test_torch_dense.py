@@ -142,7 +142,7 @@ def test_deadterm_dense_case_three_steps_match_reference():
     step_j = jstep_fn(cfg_j)
     for _ in range(3):
         state_j = step_j(state_j)
-    state_t = tsolver.make_step_fn(cfg_t, n_sub=3)(state_t)
+    state_t = tsolver.make_step_fn(cfg_t, n_sub=3, device="cpu")(state_t)
     ref = bridge.sim_state_to_numpy(state_j)
     got = bridge.sim_state_to_numpy(state_t)
     assert np.any(ref["particles"]["shear"] != 0.0)    # contacts carried
@@ -164,8 +164,9 @@ def xiaocase3_reference():
 
 
 def test_xiaocase3_25_steps_match_reference(xiaocase3_reference):
-    cfg, fluid, particles = cases.xiaocase3()
-    state = tsolver.CoupledStep(cfg).initialize(fluid, particles)
+    cfg, fluid, particles = cases.xiaocase3(device="cpu")
+    state = tsolver.CoupledStep(cfg, device="cpu").initialize(fluid,
+                                                              particles)
     sim = Simulation(cfg, state, device="cpu")
     sim.run(25 * cfg.fluid.dt)
     st = sim.state
@@ -187,7 +188,7 @@ def test_xiaocase3_25_steps_match_reference(xiaocase3_reference):
 
 def test_xiaocase3_case_matches_reference_builder():
     cj, fj, pj = make_xiaocase3()
-    ct, ft, pt = cases.xiaocase3()
+    ct, ft, pt = cases.xiaocase3(device="cpu")
     for part in ("fluid", "cloud", "dem"):
         assert dataclasses.asdict(getattr(cj, part)) == \
             dataclasses.asdict(getattr(ct, part)), part

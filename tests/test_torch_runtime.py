@@ -147,7 +147,7 @@ def test_checkpoint_leaf_order_matches_reference(stepped):
 
 
 def _steps(cfg_t, st_t, n):
-    return tsolver.make_step_fn(cfg_t, n_sub=n)(st_t)
+    return tsolver.make_step_fn(cfg_t, n_sub=n, device="cpu")(st_t)
 
 
 def test_checkpoint_reference_to_port(stepped, tmp_path):
@@ -210,8 +210,9 @@ def test_reynolds_stress_and_foam_export_match_reference(stepped, tmp_path):
 # -- the runner on xiaocase3 -----------------------------------------------
 
 def _sim(**kw):
-    cfg, fluid, particles = cases.xiaocase3()
-    state = tsolver.CoupledStep(cfg).initialize(fluid, particles)
+    cfg, fluid, particles = cases.xiaocase3(device="cpu")
+    state = tsolver.CoupledStep(cfg, device="cpu").initialize(fluid,
+                                                              particles)
     return Simulation(cfg, state, probe_locations=PROBE, device="cpu",
                       **kw), cfg.fluid.dt
 
@@ -291,7 +292,7 @@ def test_timing_split_and_from_case(tmp_path):
     # (dense, f64) and its probes argument (3 steps against the built
     # case: tests/test_torch_channel.py)
     case = cases.write_xiaocase3(str(tmp_path / "xiaocase3"))
-    loaded = Simulation.from_case(case, probe_locations=PROBE)
+    loaded = Simulation.from_case(case, probe_locations=PROBE, device="cpu")
     assert loaded.cfg.dem.backend == "dense"
     assert loaded.state.fluid.p.dtype == torch.float64
     assert loaded.controls.write_interval == 1e-3
@@ -404,9 +405,9 @@ def test_inject_column_window_grows_and_matches_full():
     the window from 2,048 to 4,096 after step 32; the windowed run equals
     the full-capacity run by tag."""
     cfg, fluid, particles = cases.inject_case(nx=8, ny=16, nz=8,
-                                              capacity=4096)
-    state = tsolver.CoupledStep(cfg, torch.float32).initialize(fluid,
-                                                               particles)
+                                              capacity=4096, device="cpu")
+    state = tsolver.CoupledStep(cfg, torch.float32, "cpu").initialize(
+        fluid, particles)
     dt = cfg.fluid.dt
     win = Simulation(cfg, state)
     assert win.windowed and win.state.particles.n_capacity == 2048

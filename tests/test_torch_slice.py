@@ -50,8 +50,8 @@ def test_three_coupled_steps_match_reference():
     step_j = jsolver.make_step_fn(cfg_j)
     for _ in range(3):
         state_j = step_j(state_j)
-    state_t = tsolver.make_step_fn(cfg_t, n_sub=3,
-                                   dtype=torch.float64)(state_t)
+    state_t = tsolver.make_step_fn(cfg_t, n_sub=3, dtype=torch.float64,
+                                   device="cpu")(state_t)
     ref = bridge.sim_state_to_numpy(state_j)
     got = bridge.sim_state_to_numpy(state_t)
     assert np.any(ref["particles"]["shear"] != 0.0)   # contacts carried
@@ -105,9 +105,9 @@ def test_bench_case_builder_matches_reference():
             dataclasses.asdict(getattr(cfg_t, part)), part
     assert dataclasses.asdict(cfg_j.grid) == dataclasses.asdict(cfg_t.grid)
     fluid, particles = bench_case.build_state(
-        cfg_t, SMALL["n_particles"], dtype=torch.float32)
-    state_t = tsolver.CoupledStep(cfg_t, dtype=torch.float32).initialize(
-        fluid, particles)
+        cfg_t, SMALL["n_particles"], dtype=torch.float32, device="cpu")
+    state_t = tsolver.CoupledStep(cfg_t, dtype=torch.float32,
+                                  device="cpu").initialize(fluid, particles)
     assert_tree_close(bridge.sim_state_to_numpy(state_j),
                       bridge.sim_state_to_numpy(state_t), 1e-5)
 
