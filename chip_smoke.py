@@ -16,9 +16,11 @@ which passes or exits nonzero:
    one state with pair and wall contacts: max error relative to each
    output's scale <= 1e-5 (f32) and 1e-12 (f64), also periodic,
    shearupdate=False and rebuilt at K = 20, and a second launch on a
-   clone equal bit for bit; then at five shapes (bench f32 and f64, the
+   clone equal bit for bit; at the clumps' K = 160 and the extras' K =
+   29 in f32 and f64; then at seven shapes (bench f32 and f64, the
    channel's particles at N = 8,192, K = 16, the injection window's
-   N = 2,048 and 65,536): the kernel's device time (torch.profiler,
+   N = 2,048 and 65,536, the clumps' 8,192 x 160 and the extras'
+   131,072 x 29): the kernel's device time (torch.profiler,
    100 launches on clones), its bound (bytes each input read once and
    each output written once, counted from the state, over HBM's rate),
    the share of it, the empty kernel's time (the launch floor) and host
@@ -61,14 +63,38 @@ which passes or exits nonzero:
 9. entry: Simulation.from_case on the written xiaocase3 (dense, f64, 5
    steps) equal to cases.xiaocase3() run the same way, and
    `python -m sedifoam_tpu_torch.run_case` on it with --device cuda;
-10. output: nvidia-smi's name/power line, a JSON line with the kernel
-   table (launches summed over the main path, runner, inject and case,
-   with the N and K it ran at; device time, bound, host time and floor
-   per shape), and last {"ok": true, "device": {...}}.
+10. clumps: the irregular-grain channel (rigid trimer clumps,
+   sedifoam_tpu_torch/cases.py) written and loaded at its full 72x50x36
+   mesh with 600 clumps over 2,592 frozen floor spheres (4,392 particles,
+   capacity 8,192, the loader's K = 160, f32, semi-implicit drag), 10
+   steps through Simulation: finite, members rigid to 1e-7 m, the floor
+   exactly still, none lost, alpha >= -1e-4, nbr_dropped 0, no same-body
+   partner in the table, the run through the kernel against the run
+   through the plain chain (<= 1e-3 of scale) and against a second run
+   resumed from a checkpoint at step 5 (bit for bit); ms/step, the split, the two body passes' ms per substep;
+11. extras: the bench lattice (131,072 particles, the loader's K = 29)
+   with cohesion (model 0, model 1) and lubrication, setup_forces and 10
+   substeps each: finite, nbr_dropped 0, the cohesive and the pairwise
+   lubrication forces sum to zero (<= 1e-5 of their absolute sum), f32
+   against f64 at 8,192 particles (the extra's own force on one state <=
+   2e-2 of scale; after the substeps pos <= 1e-5, vel <= 2e-2), binned
+   against
+   dense at 2,048 (f64, <= 1e-10), the observables' slot counts against
+   an independent count; ms per substep with and without each extra,
+   peak memory;
+12. dns: a 64^3 periodic box with the DNS spectral forcing, 10 fluid
+   steps in f32 and f64: finite, the force nonzero and solenoidal
+   (spectral divergence <= 1e3 eps of |K||F|), a second run from the same
+   key equal bit for bit; ms per forcing step;
+13. output: nvidia-smi's name/power line, a JSON line with the kernel
+   table (launches summed over the main path, runner, inject, case,
+   clumps and extras, with the N and K it ran at; device time, bound,
+   host time and floor per shape), and last {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one card; builds into build/kernels/.
 """
 
+import collections
 import dataclasses
 import json
 import os
@@ -90,6 +116,12 @@ CASE_SETTLE = 5           # steps without forcing (the validator's settle)
 CASE_STEPS = 10           # Ubar steps after them
 CASE_OVERLAP = 2e-6       # bed layers pressed together: contacts at once
 ENTRY_STEPS = 5
+CLUMP_STEPS = 10
+CLUMP_PRESS = 1e-5        # trimers lowered into the floor: contacts at once
+CLUMP_KERNEL_SUBSTEPS = 5  # a member's contact lasts 19 substeps
+EXTRAS_SUBSTEPS = 10
+DNS_STEPS = 10
+DNS_N = 64
 PROFILE_REPS = 100        # launches per device-time measurement
 PROFILE_TRIES = 3         # profiles before one that lost events fails
 HOST_CALLS = 1000         # wrapper calls per host-time measurement
@@ -130,6 +162,20 @@ def tree_leaves(obj, prefix=""):
     elif hasattr(obj, "_asdict"):
         for k, v in obj._asdict().items():
             yield from tree_leaves(v, f"{prefix}.{k}" if prefix else k)
+
+
+def fields_that_differ(a, b):
+    """Names of the tensors of two NamedTuple trees that are not equal
+    bit for bit (a NaN, as an empty particle slot's 0/0 drag, equals a
+    NaN)."""
+    out = []
+    for (name, x), (_, y) in zip(tree_leaves(a), tree_leaves(b)):
+        same = (x == y)
+        if x.is_floating_point():
+            same = same | (x.isnan() & y.isnan())
+        if not bool(same.all()):
+            out.append(name)
+    return out
 
 
 def count_syncs(fn):
@@ -219,6 +265,23 @@ def device_us(launch, reps=PROFILE_REPS):
     return t0.elapsed_time(t1) * 1e3 / reps, "CUDA graph", []
 
 
+def slots_within(p, periodic_len, gap=0.0):
+    """The count of table slots of state p whose partner's surface is
+    closer than `gap` (0: touching), counted here from the positions."""
+    import torch
+    n = p.n_capacity
+    idx = p.nbr_idx.long()
+    j = idx.clamp(0, n - 1)
+    d = p.pos[None] - p.pos[j]
+    for a, L in enumerate(periodic_len or ()):
+        if L is not None:
+            d[..., a] -= L * torch.round(d[..., a] / L)
+    reach = p.radius[None] + p.radius[j] + gap
+    within = (idx >= 0) & (idx < n) & p.active[None] & \
+        ((d * d).sum(-1) < reach * reach)
+    return int(within.sum())
+
+
 def chain_bound(p, walls, periodic_len):
     """The least time one contact_chain call on state p could take on
     the card: each input byte read once, each output byte written once,
@@ -231,16 +294,7 @@ def chain_bound(p, walls, periodic_len):
     import torch
     n, K, W = p.n_capacity, p.nbr_idx.shape[0], len(walls)
     b = p.pos.element_size()
-    idx = p.nbr_idx.long()
-    j = idx.clamp(0, n - 1)
-    d = p.pos[None] - p.pos[j]
-    for a, L in enumerate(periodic_len or ()):
-        if L is not None:
-            d[..., a] -= L * torch.round(d[..., a] / L)
-    radsum = p.radius[None] + p.radius[j]
-    touch = (idx >= 0) & (idx < n) & p.active[None] & \
-        ((d * d).sum(-1) < radsum * radsum)
-    pairs = int(touch.sum())
+    pairs = slots_within(p, periodic_len)
     wall_contacts = 0
     for w in walls:
         x = p.pos[:, w.axis]
@@ -508,10 +562,24 @@ def phase_kernel(dev):
     # column's own state barely touches)
     from sedifoam_tpu_torch.runtime.window import window_slice
     ccfg, cp = channel_kernel_case(dev)
+    # the two K > 16: the clumps' table (the loader's cap of 160) and the
+    # bench lattice on the extras' table (the loader's ring rule: K = 29,
+    # cutoff 1.6 d), each against the plain version in f32 and f64
+    kcfg, kp = clump_kernel_case(dev)
+    dem_x, _ = extras_table_case(dev)
+    xp = integrate.maybe_rebuild_neighbors(p, dem_x, force=True)
+    for label, q, dem, zero in (("clumps K=160", kp, kcfg.dem,
+                                 ("wall_shear",)),
+                                ("extras K=29", xp, dem_x, ())):
+        compare_chain(f"f32 {label}", q, dem, True, 1e-5, may_be_zero=zero)
+        compare_chain(f"f64 {label}", tree_map(
+            lambda t: t.double() if t.is_floating_point() else t, q), dem,
+            True, 1e-12, may_be_zero=zero)
     shapes = [("bench f32", p, cfg.dem), ("bench f64", p64, cfg.dem),
               ("channel f32", cp, ccfg.dem),
               ("window 2048", window_slice(p, 2048), cfg.dem),
-              ("window 65536", window_slice(p, 65536), cfg.dem)]
+              ("window 65536", window_slice(p, 65536), cfg.dem),
+              ("clumps f32", kp, kcfg.dem), ("extras f32", xp, dem_x)]
     floor = floor_us()
     res["shapes"] = [measure_chain(label, q, dem, floor)
                      for label, q, dem in shapes]
@@ -538,6 +606,63 @@ def channel_kernel_case(dev):
              f"{cfg.dem.periodic}")
     p = integrate.setup_forces(p, cfg.dem)
     return cfg, integrate.run_dem(p, cfg.dem, KERNEL_SUBSTEPS)
+
+
+def load_clumps(dev, counts):
+    """The irregular case written with CLUMP_PRESS at mesh `counts` and
+    loaded as the validator loads it: binned, f32, capacity 8,192, the
+    semi-implicit drag. Returns (cfg, fluid, particles, seconds to write,
+    seconds to load)."""
+    import torch
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.io.case import load_case
+    full = cases.IRREGULAR_FULL
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        case = cases.write_irregular_case(
+            os.path.join(tmp, "irregular"), n_clumps=full["n_clumps"],
+            counts=counts, floor_d=full["floor_d"], press=CLUMP_PRESS)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            cfg, fluid, particles, _ = load_case(
+                case, backend="binned", dtype=torch.float32, capacity=8192,
+                device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    for w in seen:
+        # the ring of the 1 mm floor over the 0.35 mm grains asks for more
+        # slots than the loader's cap; the audit (nbr_dropped) tells
+        # whether a partner was lost
+        say(f"load_case warns: {w.message}")
+    cfg = dataclasses.replace(cfg, cloud=dataclasses.replace(
+        cfg.cloud, semi_implicit_drag=True))
+    return cfg, fluid, particles, t_write, t_load
+
+
+def clump_kernel_case(dev):
+    """The clumps' particles as the case loads them (K = 160, periodic
+    x/z, the y walls), written on a coarse mesh (the DEM state does not
+    depend on it), after setup_forces and CLUMP_KERNEL_SUBSTEPS substeps:
+    the pressed members in contact with the floor, with shear history."""
+    from sedifoam_tpu_torch.dem import integrate
+    cfg, _, p, _, _ = load_clumps(dev, (9, 8, 6))
+    if p.nbr_idx.shape[0] != 160 or p.rigid is None:
+        fail(f"clump kernel case: K {p.nbr_idx.shape[0]}, rigid {p.rigid}")
+    p = integrate.setup_forces(p, cfg.dem)
+    return cfg, integrate.run_dem(p, cfg.dem, CLUMP_KERNEL_SUBSTEPS)
+
+
+def extras_table_case(dev):
+    """(DEMConfig, particles) of the bench lattice on the extras' table,
+    no extra switched on: what the kernel sees in phase_extras."""
+    import torch
+    from sedifoam_tpu_torch import bench_case, cases
+    dem, p = cases.extras_bed(bench_case.FULL["n_particles"],
+                              cohesion_model=0, lubrication=True,
+                              dtype=torch.float32, device=dev)
+    return dataclasses.replace(dem, cohesion=None, lubrication=None), p
 
 
 def phase_main_path(dev):
@@ -1085,6 +1210,397 @@ def phase_entry(dev):
         fail(f"run_case summary {summary}")
 
 
+def same_body_slots(p):
+    """Table slots of p that hold a partner of the particle's own body."""
+    n = p.n_capacity
+    j = p.nbr_idx.clamp(0, n - 1).long()
+    return int(((p.mol[j] == p.mol[None, :]) & (p.mol[None, :] > 0)
+                & (p.nbr_idx < n)).sum())
+
+
+def member_gaps(p):
+    """Distances between consecutive members of each clump (the loader
+    keeps a clump's members in adjacent rows, in tag order)."""
+    import torch
+    members = p.pos[p.mol > 0].reshape(-1, 3, 3)
+    return torch.linalg.norm(members[:, 1:] - members[:, :-1], dim=-1)
+
+
+def phase_clumps(dev):
+    """The irregular-grain channel loaded from its written case directory
+    at full width, through Simulation, with scripts/validate_irregular.py's
+    gates."""
+    import torch
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.dem import fused, integrate, rigid
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import CoupledStep
+    full = cases.IRREGULAR_FULL
+    cfg, fluid, particles, t_write, t_load = load_clumps(dev, full["counts"])
+    n0 = int(particles.active.sum())
+    K = particles.nbr_idx.shape[0]
+    n_floor = int((particles.ptype == 2).sum())
+    n_clumps = full["n_clumps"]
+    n_bed = len(cases.trimer_bed(n_clumps, full["floor_d"])[0])
+    checks = {
+        f"grid {cfg.grid.shape}": cfg.grid.shape == full["counts"],
+        "graded y (1:10)": not cfg.grid.uniform,
+        "periodic (T, F, T)": cfg.dem.periodic == (True, False, True),
+        "frozen_types (2,)": cfg.dem.frozen_types == (2,),
+        "hooke_history": cfg.dem.pair.style == "hooke_history",
+        "Ubar 0.5": (cfg.fluid.forcing.mode == "Ubar"
+                     and abs(cfg.fluid.forcing.mag_ubar - 0.5) < 1e-12),
+        "kEqn": cfg.fluid.turbulence.model == "kEqn",
+        "K 160": cfg.dem.nbr_k == K == 160,
+        f"{n0} particles ({n_floor} floor), capacity "
+        f"{particles.n_capacity}": (
+            n0 == n_bed == n_floor + 3 * n_clumps
+            and particles.n_capacity == 8192),
+        f"{n_clumps} bodies": (
+            particles.rigid is not None
+            and int(particles.rigid.valid.sum()) == n_clumps
+            and int((particles.mol > 0).sum()) == 3 * n_clumps),
+    }
+    sub = cfg.cloud.sub_cycles * cfg.cloud.sub_steps
+    say(f"clumps: case written in {t_write:.3f} s, loaded in {t_load:.3f} s "
+        f"({cfg.grid.n_cells} cells, {n0} particles, K {K}, dt "
+        f"{cfg.fluid.dt:g}, {sub} substeps); config: " + ", ".join(
+            f"{k} {'ok' if v else 'WRONG'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        fail(f"clumps config: {[k for k, v in checks.items() if not v]}")
+
+    fused.LAUNCHES = 0
+    fused.LAUNCH_SIZES.clear()
+    state0 = CoupledStep(cfg, torch.float32, dev).initialize(fluid,
+                                                             particles)
+    p0 = state0.particles
+    floor = p0.ptype == 2
+    gaps0 = member_gaps(p0)
+    if same_body_slots(p0):
+        fail("clumps: the first table holds same-body partners")
+    sim = Simulation(cfg, state0, device=dev)
+    if sim.windowed:
+        fail("clumps: the active window must stay off with rigid bodies")
+    run_steps(sim, 1)                                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(sim, CLUMP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused.LAUNCHES
+    by_n = dict(fused.LAUNCH_SIZES)
+    ms = wall / (CLUMP_STEPS - 1) * 1e3
+    expected = 1 + CLUMP_STEPS * sub
+    say(f"clumps: steps 2-{CLUMP_STEPS} in {wall:.4f} s = {ms:.3f} ms/step; "
+        f"contact_chain launches {launches} (1 setup + {CLUMP_STEPS} steps "
+        f"x {sub} substeps = {expected}; {sub} a step) by N {by_n} at K {K}")
+    if launches != expected:
+        fail(f"clumps: kernel launched {launches} times, expected {expected}")
+
+    # the same steps through the plain chain ...
+    plain_cfg = dataclasses.replace(cfg, dem=dataclasses.replace(
+        cfg.dem, fused_chain=False))
+    plain = Simulation(plain_cfg, state0, device=dev)
+    run_steps(plain, CLUMP_STEPS)
+    # ... and through the kernel again, by way of a checkpoint half-way
+    # that a fresh Simulation resumes
+    again = Simulation(cfg, state0, device=dev)
+    run_steps(again, CLUMP_STEPS // 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = again.save_checkpoint(os.path.join(tmp, "ck.npz"))
+        again = Simulation(cfg, state0, device=dev)
+        again.resume(ckpt)
+    if int(again.state.fluid.step) != CLUMP_STEPS // 2:
+        fail(f"clumps: resumed at step {int(again.state.fluid.step)}")
+    run_steps(again, CLUMP_STEPS)
+    fused.LAUNCHES, fused.LAUNCH_SIZES = launches, collections.Counter(by_n)
+    worst, where = compare_states(sim.state, plain.state)
+    say(f"clumps: {CLUMP_STEPS} steps, kernel vs plain chain: worst "
+        f"{worst:.3e} ({where}; tol 1e-3; Ua, DDtUa and phia compared as "
+        "alpha*Ua)")
+    if worst > 1e-3:
+        fail("the clump path through the kernel disagrees with the plain "
+             "chain")
+    differ = fields_that_differ(sim.state, again.state)
+    say(f"clumps: a second run of the same {CLUMP_STEPS} steps, resumed "
+        f"from its checkpoint at step {CLUMP_STEPS // 2}, equal bit for "
+        f"bit: {not differ} (the body sums add in a fixed order)")
+    if differ:
+        fail(f"clumps: the resumed run differs from the straight run in "
+             f"{differ}")
+
+    s = sim.state
+    p = s.particles
+    check_finite(s, "clumps")
+    dropped = int(p.nbr_dropped)
+    n_active = int(p.active.sum())
+    gap_dev = float((member_gaps(p) - gaps0).abs().max())
+    moved = float((p.pos[floor] - p0.pos[floor]).abs().max())
+    alpha = s.fluid.alpha
+    amin, amax = float(alpha.min()), float(alpha.max())
+    vel = p.vel[p.mol > 0]
+    touched = int((p.shear != 0).any(dim=0)[:, p.mol > 0].any(dim=0).sum())
+    rebuilt = integrate.maybe_rebuild_neighbors(p, cfg.dem, force=True)
+    same = same_body_slots(p), same_body_slots(rebuilt)
+    say(f"clumps state: finite; nbr_dropped {dropped}; active {n_active}; "
+        f"member gaps changed by at most {gap_dev:.3e} m; floor moved "
+        f"{moved:.3e} m; alpha in [{amin:.4g}, {amax:.4g}]; members' mean "
+        f"vx {float(vel[:, 0].mean()):.4g}, vy {float(vel[:, 1].mean()):.4g}"
+        f" m/s; {touched} members in contact; same-body slots {same[0]} in "
+        f"the run's table, {same[1]} after a forced rebuild")
+    if dropped != 0:
+        fail(f"clumps: neighbor audit dropped {dropped} in-ring partners")
+    if n_active != n0:
+        fail(f"clumps: {n0 - n_active} particles lost")
+    if gap_dev >= 1e-7:
+        fail(f"clumps: member distances changed by {gap_dev} m")
+    if not torch.equal(p.pos[floor], p0.pos[floor]):
+        fail(f"clumps: the frozen floor moved ({moved} m)")
+    if amin <= -1e-4:
+        fail(f"clumps: alpha {amin} below -1e-4")
+    if same != (0, 0):
+        fail(f"clumps: same-body partners in the table: {same}")
+
+    split = sim.timing_split(n=2)
+    say("clumps timing_split (CUDA events, mean of 2): " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in split.items()))
+    # the two body passes of a substep, beside the substep itself
+    def body_passes():
+        return rigid.final_integrate(rigid.initial_integrate(
+            p, cfg.dem.dt, cfg.dem.domain_lo, cfg.dem.domain_hi,
+            cfg.dem.periodic), cfg.dem.dt)
+
+    body_ms = cuda_ms(body_passes, 50)
+    q = p._replace(shear=p.shear.clone(), wall_shear=p.wall_shear.clone())
+    sub_ms = cuda_ms(lambda: integrate.run_dem(q, cfg.dem, 1), 50)
+    free = q._replace(rigid=None)
+    free_ms = cuda_ms(lambda: integrate.run_dem(free, cfg.dem, 1), 50)
+    fused.LAUNCHES, fused.LAUNCH_SIZES = launches, collections.Counter(by_n)
+    say(f"clumps: the two body passes {body_ms:.4f} ms per substep (CUDA "
+        f"events, mean of 50; host-bound), "
+        f"{100 * body_ms / sub_ms:.1f}% of "
+        f"a substep of {sub_ms:.4f} ms ({free_ms:.4f} ms with the bodies "
+        "taken out of the state)")
+    return {"launches": launches, "N": sorted(by_n), "K": K}
+
+
+def phase_extras(dev):
+    """Cohesion and lubrication on the bench lattice, and the contact
+    observables, at full width."""
+    import torch
+    from sedifoam_tpu_torch import bench_case, cases
+    from sedifoam_tpu_torch.dem import (cohesion, fused, integrate,
+                                        lubrication, observables)
+    from sedifoam_tpu_torch.dem.state import make_particles
+    n = bench_case.FULL["n_particles"]
+    variants = (("cohesion model 0", dict(cohesion_model=0)),
+                ("cohesion model 1", dict(cohesion_model=1)),
+                ("lubrication", dict(lubrication=True)))
+
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+
+    def fresh(q):
+        return q._replace(shear=q.shear.clone(),
+                          wall_shear=q.wall_shear.clone())
+
+    def extra_force(q, dem, pairwise_only=False):
+        """(force, torque or None) of the one extra that dem switches on,
+        over q's table; pairwise_only leaves lubrication's FLD drag out."""
+        plen = dem.periodic_len()
+        if dem.cohesion is not None:
+            return cohesion.cohesion_forces_binned(
+                q, dem.cohesion, q.nbr_idx, plen), None
+        lub = dem.lubrication
+        if pairwise_only:
+            lub = dataclasses.replace(lub, flagfld=0)
+        return lubrication.lubrication_forces_binned(q, lub, q.nbr_idx, plen)
+
+    fused.LAUNCHES = 0
+    fused.LAUNCH_SIZES.clear()
+    K = None
+    for label, kw in variants:
+        torch.cuda.reset_peak_memory_stats()
+        dem, p = cases.extras_bed(n, dtype=torch.float32, device=dev, **kw)
+        K = dem.nbr_k
+        if K > 32:
+            fail(f"extras [{label}]: K {K} > 32")
+        bare = dataclasses.replace(dem, cohesion=None, lubrication=None)
+        p = integrate.setup_forces(p, dem)
+        counted = fused.LAUNCHES, fused.LAUNCH_SIZES.copy()
+        ms_with = cuda_ms(lambda: integrate.run_dem(fresh(p), dem, 1), 10)
+        ms_bare = cuda_ms(lambda: integrate.run_dem(fresh(p), bare, 1), 10)
+        fused.LAUNCHES, fused.LAUNCH_SIZES = counted
+        p = integrate.run_dem(p, dem, EXTRAS_SUBSTEPS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        for name in ("pos", "vel", "omega", "force", "torque"):
+            if not bool(torch.isfinite(getattr(p, name)).all()):
+                fail(f"extras [{label}]: {name} is not finite")
+        dropped = int(p.nbr_dropped)
+        if dropped != 0:
+            fail(f"extras [{label}]: {dropped} in-ring partners dropped")
+        # Newton's third law over the table: the pair terms cancel
+        plen = dem.periodic_len()
+        f, _ = extra_force(p, dem, pairwise_only=True)
+        total = float(f.double().sum(dim=0).abs().max())
+        scale = float(f.double().abs().sum(dim=0).max())
+        say(f"extras [{label}]: N {n}, K {K}, cutoff {dem.cutoff:g}; "
+            f"{ms_with:.3f} ms per substep with it, {ms_bare:.3f} without "
+            f"(CUDA events, mean of 10); peak memory {peak:.0f} MiB; "
+            f"nbr_dropped 0; pair forces sum to {total:.3e} of {scale:.3e} "
+            f"summed in magnitude ({total / scale:.2e}; tol 1e-5)")
+        if not scale > 0.0 or total > 1e-5 * scale:
+            fail(f"extras [{label}]: the pair forces do not cancel")
+
+        # the observables against a count made here
+        ct = observables.contact_table(p, dem)
+        touching = int(ct["touching"].sum())
+        counts = f"contact_table {touching} touching slots"
+        ok = touching == slots_within(p, plen) and touching > 0
+        if dem.cohesion is not None:
+            co = observables.cohesion_table(p, dem)
+            ring = int(co["touching"].sum())
+            counts += f", cohesion_table {ring} slots within smax"
+            ok = ok and ring == slots_within(p, plen, dem.cohesion.smax) \
+                and ring > touching
+        say(f"extras [{label}]: {counts}: equal to the counts from the "
+            f"positions: {ok}")
+        if not ok:
+            fail(f"extras [{label}]: the observables' counts are off")
+
+        # f32 against f64 on the same (f32-rounded) window of 8,192: the
+        # extra's own force on one state (2e-2: the surface separation of
+        # a pair 1e-7 m apart is the difference of two lengths of 1e-3 m,
+        # f32 resolves it to 6e-4 of itself, and the cohesive law goes
+        # with its inverse cube), then the motion after the substeps.
+        # (The total force is not held: the contact law takes
+        # an overlap of ~1e-5 m as the difference of two lengths of 1e-3
+        # m, which f32 resolves to 6e-6 of itself on one state and, once
+        # the f32 run has rounded its own positions, to 4e-4; and
+        # lubrication's inner cutoff is a jump in the law.)
+        dem_w, w32 = cases.extras_bed(8192, dtype=torch.float32, device=dev,
+                                      **kw)
+        counted = fused.LAUNCHES, fused.LAUNCH_SIZES.copy()
+        w64 = tree_map(f64, w32)
+        w32 = integrate.setup_forces(w32, dem_w)
+        w64 = integrate.setup_forces(w64, dem_w)
+        errs0 = {k: rel_err(a, b) for k, a, b in zip(
+            ("force", "torque"), extra_force(w64, dem_w),
+            extra_force(w32, dem_w)) if a is not None}
+        w32 = integrate.run_dem(w32, dem_w, EXTRAS_SUBSTEPS)
+        w64 = integrate.run_dem(w64, dem_w, EXTRAS_SUBSTEPS)
+        errs = {name: rel_err(getattr(w64, name), getattr(w32, name))
+                for name in ("pos", "vel", "omega", "force", "torque")}
+        # binned against dense at 2,048, f64
+        dem_b, b = cases.extras_bed(2048, dtype=torch.float64, device=dev,
+                                    **kw)
+        dem_d = dataclasses.replace(dem_b, backend="dense")
+        d = make_particles(b.pos.cpu().numpy(), b.radius.cpu().numpy(),
+                           b.density.cpu().numpy(), vel=b.vel.cpu().numpy(),
+                           omega=b.omega.cpu().numpy(),
+                           n_walls=len(dem_b.walls), dtype=torch.float64,
+                           device=dev)
+        b = integrate.setup_forces(b, dem_b)
+        d = integrate.setup_forces(d, dem_d)
+        fused.LAUNCHES, fused.LAUNCH_SIZES = counted
+        errs_d = {name: rel_err(getattr(d, name), getattr(b, name))
+                  for name in ("force", "torque")}
+        say(f"extras [{label}]: f32 vs f64 at 8,192, the extra's own "
+            "terms on one state: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs0.items())
+            + f" (tol 2e-2); after {EXTRAS_SUBSTEPS} substeps: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items())
+            + " (tol: pos 1e-5, vel 2e-2; the rest is not held); binned vs "
+            "dense at 2,048 (f64): " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs_d.items()) + " (tol 1e-10)")
+        if max(errs0.values()) > 2e-2 or errs["pos"] > 1e-5 \
+                or errs["vel"] > 2e-2 or max(errs_d.values()) > 1e-10:
+            fail(f"extras [{label}]: precisions or backends disagree")
+    launches = fused.LAUNCHES
+    expected = len(variants) * (1 + EXTRAS_SUBSTEPS)
+    by_n = dict(fused.LAUNCH_SIZES)
+    say(f"extras: contact_chain launches {launches} ({len(variants)} "
+        f"variants x (1 setup + {EXTRAS_SUBSTEPS} substeps) = {expected}) "
+        f"by N {by_n} at K {K}")
+    if launches != expected:
+        fail(f"extras: kernel launched {launches} times, expected {expected}")
+    return {"launches": launches, "N": sorted(by_n), "K": K}
+
+
+def phase_dns(dev):
+    """The DNS spectral forcing in tests/test_ibm_dns.py's periodic box at
+    DNS_N^3 cells."""
+    import torch
+    from sedifoam_tpu_torch import bc
+    from sedifoam_tpu_torch.config import FluidConfig, PISOConfig
+    from sedifoam_tpu_torch.fluid import bodyforce
+    from sedifoam_tpu_torch.fluid.state import FluidBCs, init_fluid
+    from sedifoam_tpu_torch.fluid.step import fluid_step
+    from sedifoam_tpu_torch.grid import Grid
+    n, L = DNS_N, 0.08
+    grid = Grid(nx=n, ny=n, nz=n, dx=L / n, dy=L / n, dz=L / n)
+    cyc = bc.PatchBC(bc.CYCLIC)
+    cyc3 = bc.PatchBC(bc.CYCLIC, (0.0, 0.0, 0.0))
+    bcs = FluidBCs(alpha=bc.FieldBC(*(cyc for _ in range(6))),
+                   p=bc.FieldBC(*(cyc for _ in range(6))),
+                   Ub=bc.FieldBC(*(cyc3 for _ in range(6))),
+                   Ua=bc.FieldBC(*(cyc3 for _ in range(6))))
+    for dtype, p_tol in ((torch.float32, 1e-6), (torch.float64, 1e-9)):
+        name = str(dtype).split(".")[-1]
+        # the test's parameters; f32 cannot reach its p_tol of 1e-9
+        cfg = FluidConfig(dt=1e-3, rhob=1000.0, nub=1e-6,
+                          piso=PISOConfig(n_correctors=1, p_tol=p_tol),
+                          add_dns_force=True, dns_alpha=1.0, dns_sigma=0.5,
+                          dns_k_upper=600.0, dns_k_lower=0.0)
+        fs0 = init_fluid(grid, dtype=dtype, device=dev)
+        fs0 = fs0._replace(dns_key=torch.tensor([0, 7], dtype=torch.int64,
+                                                device=dev))
+
+        def run():
+            fs = fs0
+            for _ in range(DNS_STEPS):
+                fs = fluid_step(fs, grid, bcs, cfg)
+            return fs
+
+        run()                                              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fs = run()
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) / DNS_STEPS * 1e3
+        again = run()
+        for field, t in tree_leaves(fs):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                fail(f"dns {name}: {field} is not finite")
+        differ = fields_that_differ(fs, again)
+        force = fs.turbulence_force
+        K, k_mag, _ = bodyforce._wavevectors(grid, dtype, dev)
+        Fk = torch.fft.fftn(force, dim=(-3, -2, -1))
+        div = float((K * Fk).sum(dim=0).abs().max())
+        scale = float((k_mag[None] * Fk.abs()).max())
+        modes = int((fs.dns_f_hat != 0).any(dim=0).any(dim=0).sum())
+        uo = bodyforce.UOForcingState(fs.dns_f_hat, fs.dns_key)
+        ms_force = cuda_ms(lambda: bodyforce.uo_forcing_step(
+            uo, grid, cfg.dt, cfg.dns_alpha, cfg.dns_sigma, cfg.dns_k_upper,
+            cfg.dns_k_lower), 20)
+        eps = torch.finfo(dtype).eps
+        say(f"dns {name}: {n}^3 box, {DNS_STEPS} fluid steps, "
+            f"{ms_step:.3f} ms/step (host clock), {ms_force:.4f} ms per "
+            f"forcing step (CUDA events, mean of 20); {modes} modes in the "
+            f"shell; max |force| {float(force.abs().max()):.4g}, kinetic "
+            f"energy sum {float((fs.Ub ** 2).sum()):.4g}; spectral "
+            f"divergence {div:.3e} of {scale:.3e} = {div / scale:.2e} (tol "
+            f"{1e3 * eps:.1e}); a second run equal bit for bit: "
+            f"{not differ}")
+        if not float(force.abs().max()) > 0.0 or modes == 0:
+            fail(f"dns {name}: the forcing is zero")
+        if div > 1e3 * eps * scale:
+            fail(f"dns {name}: the force is not solenoidal")
+        if differ:
+            fail(f"dns {name}: two runs from one key differ in {differ}")
+
+
 def main():
     try:
         import torch
@@ -1103,12 +1619,17 @@ def main():
     case = phase_case(dev)
     launches += case["launches"]
     phase_entry(dev)
+    clumps = phase_clumps(dev)
+    extras = phase_extras(dev)
+    phase_dns(dev)
     say(smi)
     ran_at = [{"N": 131072, "K": 8, "launches": launches - inject_launches
                - case["launches"]}]
     ran_at += [{"N": n, "K": 8, "launches": c} for n, c in by_n.items()]
-    ran_at += [{"N": n, "K": case["K"], "launches": case["launches"]}
-               for n in case["N"]]
+    for path in (case, clumps, extras):
+        ran_at += [{"N": n, "K": path["K"], "launches": path["launches"]}
+                   for n in path["N"]]
+    launches += clumps["launches"] + extras["launches"]
     bench = k["shapes"][0]
     say(json.dumps({"kernels": [{
         "name": "contact_chain", "route": "cuda",

@@ -60,11 +60,14 @@ def _named(cls, d, device, dtype):
 
 
 def particle_state_from_numpy(d, device=None, dtype=None) -> ParticleState:
+    """`rigid`, when set, crosses as a nested dict of the body fields."""
+    ps = _named(ParticleState, {k: v for k, v in d.items() if k != "rigid"},
+                device, dtype)
     if d.get("rigid") is not None:
-        raise NotImplementedError(
-            "rigid clumps (ParticleState.mol/rigid, dem/rigid.py) are not "
-            "ported")
-    return _named(ParticleState, d, device, dtype)
+        from sedifoam_tpu_torch.dem.rigid import RigidBodies
+        ps = ps._replace(rigid=_named(RigidBodies, d["rigid"], device,
+                                      dtype))
+    return ps
 
 
 def fluid_state_from_numpy(d, device=None, dtype=None) -> FluidState:

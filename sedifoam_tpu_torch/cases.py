@@ -20,8 +20,11 @@ diameter, so they do not collide.
 
 ``write_xiaocase3`` writes the dictionaries that ``xiaocase3``
 transcribes; loading the directory gives the same case.
-``write_channel_case`` writes a transport-bedload channel (see its
-docstring for what it is built from and which values it chooses).
+``write_channel_case`` writes a transport-bedload channel and
+``write_irregular_case`` the irregular-grain channel of rigid trimer
+clumps (see their docstrings for what they are built from and which
+values they choose). ``extras_bed`` is the bench lattice with cohesion
+and lubrication switched on.
 """
 
 from __future__ import annotations
@@ -222,12 +225,18 @@ def _field(case_dir, name, cls, dims, internal, patches):
           f"boundaryField\n{{\n{bf}}}\n")
 
 
-def _data_file(path, rows, box, n_types):
+def _data_file(path, rows, box, n_types, mol_rows=()):
+    """A LAMMPS data file (atom_style sphere); `mol_rows` ('atom mol'
+    lines) add the Molecules section that `read_data ... fix molprop
+    NULL Molecules` reads."""
     lines = ["sedifoam case writer IC", "", f"{len(rows)} atoms",
              f"{n_types} atom types", "",
              f"{box[0]} {box[1]} xlo xhi", f"{box[2]} {box[3]} ylo yhi",
              f"{box[4]} {box[5]} zlo zhi", "", "Atoms", ""]
-    _write(path, "\n".join(lines + rows) + "\n")
+    lines += rows
+    if mol_rows:
+        lines += ["", "Molecules", ""] + list(mol_rows)
+    _write(path, "\n".join(lines) + "\n")
 
 
 def _probes(locations):
@@ -478,3 +487,269 @@ fix             ywalls all wall/gran 5000 NULL 11200 NULL 0.1 0 yplane {box[2]} 
     _data_file(os.path.join(case_dir, "In_initial.in"),
                channel_bed(d, layers, frozen_layers, seed, overlap), box, 2)
     return case_dir
+
+
+# the irregular case's box and grain (scripts/validate_irregular.py:42-44)
+IRREGULAR_BOX = (0.0, 0.072, 0.0, 0.04, 0.0, 0.036)
+IRREGULAR_D = 0.00035
+IRREGULAR_FULL = dict(n_clumps=600, counts=(72, 50, 36), floor_d=0.001)
+
+
+def trimer_bed(n_clumps=600, floor_d=0.001, press=0.0):
+    """scripts/validate_irregular.py's synthetic bed (`synth_clumps`): one
+    layer of frozen type-2 floor spheres of diameter `floor_d` on a
+    lattice over the box floor, and above it `n_clumps` trimers of three
+    collinear 0.35 mm spheres (types 3, 4, 5) on a jittered lattice, each
+    lying in the x-z plane at a random angle. The trimers start half a
+    floor diameter and half a grain above the floor's top, as there;
+    press > 0 lowers them until a member right above a floor sphere
+    overlaps it by `press` (contacts from the first substep, for the few
+    percent of members that lie over a sphere's top). Returns (data-file
+    rows, Molecules rows `atom mol`)."""
+    box, D, rhoa = IRREGULAR_BOX, IRREGULAR_D, 2650.0
+    rng = np.random.default_rng(11)        # the validator's seed
+    rows, mol_rows = [], []
+    tag = 1
+    nx = int((box[1] - box[0]) / floor_d)
+    nz = int((box[5] - box[4]) / floor_d)
+    y0 = box[2] + 0.5 * floor_d
+    for i in range(nx):
+        for k in range(nz):
+            x = box[0] + (i + 0.5) * (box[1] - box[0]) / nx
+            z = box[4] + (k + 0.5) * (box[5] - box[4]) / nz
+            rows.append(f"{tag} 2 {floor_d} {rhoa} "
+                        f"{x:.8f} {y0:.8f} {z:.8f}")
+            tag += 1
+    span = 2 * D            # trimer end-to-end center distance
+    pitch = 1.6 * (span + D)
+    nxc = int((box[1] - box[0] - span) / pitch)
+    nzc = int((box[5] - box[4] - span) / pitch)
+    per_layer = max(nxc * nzc, 1)
+    for c in range(n_clumps):
+        layer, r = divmod(c, per_layer)
+        i, k = divmod(r, max(nzc, 1))
+        x = box[0] + span + (i + 0.5) * pitch
+        z = box[4] + span + (k + 0.5) * pitch
+        y = (floor_d + 0.5 * D - press if press > 0 else y0 + floor_d + D) \
+            + layer * pitch
+        th = rng.uniform(0, 2 * np.pi)
+        u = np.array([np.cos(th), 0.0, np.sin(th)])
+        base = np.array([x, y, z]) + rng.uniform(-0.1 * D, 0.1 * D, 3)
+        for m, t in enumerate((3, 4, 5)):
+            p = base + (m - 1) * D * u
+            rows.append(f"{tag} {t} {D} {rhoa} "
+                        f"{p[0]:.8f} {p[1]:.8f} {p[2]:.8f}")
+            mol_rows.append(f"{tag} {c + 1}")
+            tag += 1
+    return rows, mol_rows
+
+
+def _molecule_template(path, coords, types, d):
+    """A LAMMPS `molecule` file of spheres of diameter d (mass at 2650
+    kg/m^3)."""
+    n = len(coords)
+    mass = 2650.0 * np.pi / 6.0 * d ** 3
+    text = [f"# rigid clump template: {n} spheres", "", f"{n} atoms", "",
+            "Coords", ""]
+    text += [f"{i + 1} {x:.6g} {y:.6g} {z:.6g}"
+             for i, (x, y, z) in enumerate(coords)]
+    text += ["", "Types", ""] + [f"{i + 1} {t}" for i, t in enumerate(types)]
+    text += ["", "Diameters", ""] + [f"{i + 1} {d:.6g}" for i in range(n)]
+    text += ["", "Masses", ""] + [f"{i + 1} {mass:.6g}" for i in range(n)]
+    _write(path, "\n".join(text) + "\n")
+
+
+def write_irregular_case(case_dir: str, n_clumps=600, counts=(72, 50, 36),
+                         floor_d=0.001, press=0.0) -> str:
+    """Write the irregular-grain channel (bonded-sphere grains, Sun & Xiao
+    arXiv:1608.01049; the reference's example-case `irregular`) as a case
+    directory. Returns case_dir.
+
+    From what the repo records (scripts/validate_irregular.py, README
+    validation table, tests/test_rigid.py):
+    - the 0.072 x 0.04 x 0.036 m box, cyclic in x and z, a y-graded mesh;
+    - grains as rigid trimers of three collinear 0.35 mm spheres (types
+      3, 4, 5; `molecule object1 in.pairA`; four templates in.pairA-D, the
+      second of six spheres), density 2650, integrated by `fix 5 big
+      rigid/small molecule`, read with `read_data In_initial.in fix
+      molprop NULL Molecules`;
+    - a floor of frozen 1 mm type-2 spheres: types 1 and 2 carry no
+      integration fix, which is what keeps them still;
+    - gran/hooke/history contacts, water (rhob 1000, nub 1e-6), kEqn LES,
+      Ubar (0.5 0 0), maxPossibleAlpha 0.8;
+    - the bed: trimer_bed (the validator's synthetic bed, seed 11): with
+      the defaults 2,592 floor spheres and 600 trimers, 4,392 particles
+      (`press` lowers the trimers into contact with the floor).
+
+    Chosen here (the repo does not record them):
+    - the mesh: 72 x 50 x 36 cells with `simpleGrading (1 10 1)` (1 mm
+      cells in x and z; 0.2 mm to 2 mm in y, the bottom cells thinner than
+      a floor sphere, as the validator notes of the reference's mesh);
+    - the pair and wall line `gran/hooke/history 200 NULL 50000 NULL 0.5
+      0`: a contact between two members lasts pi*sqrt(m_eff/kn) = 3.8e-5
+      s, and an impact at 0.1 m/s overlaps by 0.7% of a radius;
+    - DEM timestep 2e-6 s (19 per contact) and deltaT 1e-4 s: 50 substeps,
+      Courant 0.05 at 0.5 m/s;
+    - `fix fdrag` without a carrier density; ErgunWenYu drag; the loader's
+      defaults for the smoothing; PCG tolerance 1e-6, 2 PISO correctors;
+    - the fluid starts at rest, top slip, bottom no-slip, y walls for the
+      particles at the box faces;
+    - the members of templates B-D (the loader parses them; no grain of
+      the bed uses them): a 3 x 2 raft, a tetrahedron and a dimer of 0.25
+      mm spheres.
+    """
+    box, D = IRREGULAR_BOX, IRREGULAR_D
+    nx, ny, nz = counts
+    _foam(case_dir, "constant/polyMesh/blockMeshDict", "dictionary", f"""
+convertToMeters 1;
+vertices ( (0 0 0) ({box[1]} 0 0) ({box[1]} {box[3]} 0) (0 {box[3]} 0)
+           (0 0 {box[5]}) ({box[1]} 0 {box[5]}) ({box[1]} {box[3]} {box[5]})
+           (0 {box[3]} {box[5]}) );
+blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 10 1) );
+edges ();
+boundary
+(
+    bottom {{ type wall; faces ( (1 5 4 0) ); }}
+    top    {{ type wall; faces ( (3 7 6 2) ); }}
+    left   {{ type cyclic; neighbourPatch right; faces ( (0 4 7 3) ); }}
+    right  {{ type cyclic; neighbourPatch left;  faces ( (2 6 5 1) ); }}
+    front  {{ type cyclic; neighbourPatch back;  faces ( (0 1 2 3) ); }}
+    back   {{ type cyclic; neighbourPatch front; faces ( (4 5 6 7) ); }}
+);
+""")
+    cyc = {p: "type cyclic;" for p in ("left", "right", "front", "back")}
+    zg = "type zeroGradient;"
+    _field(case_dir, "alpha", "volScalarField", _DIMS["alpha"], "uniform 0",
+           {"bottom": zg, "top": zg, **cyc})
+    _field(case_dir, "p", "volScalarField", _DIMS["p"], "uniform 0",
+           {"bottom": zg, "top": zg, **cyc})
+    _field(case_dir, "Ub", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
+           {"bottom": "type fixedValue; value uniform (0 0 0);",
+            "top": "type slip;", **cyc})
+    _field(case_dir, "Ua", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
+           {"bottom": "type fixedValue; value $internalField;",
+            "top": "type slip;", **cyc})
+    _foam(case_dir, "system/controlDict", "dictionary", """
+startTime 0;
+endTime 0.6;
+deltaT 1e-4;
+writeInterval 0.1;
+""" + _probes([(0.5 * box[1], 0.5 * box[3], 0.5 * box[5])]))
+    _foam(case_dir, "system/fvSolution", "dictionary", """
+solvers
+{
+    p { solver PCG; preconditioner DIC; tolerance 1e-6; relTol 0; }
+}
+PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
+""")
+    _foam(case_dir, "constant/transportProperties", "dictionary", """
+rhoa rhoa [1 -3 0 0 0 0 0] 2650;
+rhob rhob [1 -3 0 0 0 0 0] 1000;
+nub nub [0 2 -1 0 0 0 0] 1e-06;
+Ubar Ubar [0 1 -1 0 0 0 0] (0.5 0 0);
+""")
+    _foam(case_dir, "constant/environmentalProperties", "dictionary",
+          "g g [0 1 -2 0 0 0 0] (0 -9.81 0);\n")
+    _foam(case_dir, "constant/turbulenceProperties", "dictionary", """
+simulationType LES;
+LES { LESModel kEqn; turbulence on; delta cubeRootVol; }
+""")
+    _foam(case_dir, "constant/cloudProperties", "dictionary", """
+dragModel ErgunWenYu;
+subCycles 1;
+maxPossibleAlpha 0.8;
+""")
+    gran = "200 NULL 50000 NULL 0.5 0"
+    _write(os.path.join(case_dir, "in.lammps"), f"""\
+atom_style      sphere
+atom_modify     map array
+boundary        p f p
+newton          off
+fix             molprop all property/atom mol
+molecule        object1 in.pairA
+molecule        object2 in.pairB
+molecule        object3 in.pairC
+molecule        object4 in.pairD
+read_data       In_initial.in fix molprop NULL Molecules
+pair_style      gran/hooke/history {gran}
+pair_coeff      * *
+timestep        2e-6
+group           big type 3 4 5
+fix             2 all gravity 9.81 vector 0 -1 0
+fix             3 all fdrag
+fix             ywalls all wall/gran {gran} yplane {box[2]} {box[3]}
+fix             5 big rigid/small molecule
+""")
+    a = 0.00025
+    h = a * np.sqrt(3.0) / 2.0
+    templates = {
+        "in.pairA": ([(-D, 0, 0), (0, 0, 0), (D, 0, 0)], (3, 4, 5), D),
+        "in.pairB": ([(i * a, 0, k * a) for i in range(3) for k in range(2)],
+                     (6,) * 6, a),
+        "in.pairC": ([(0, 0, 0), (a, 0, 0), (a / 2, 0, h),
+                      (a / 2, a * np.sqrt(2.0 / 3.0), h / 3)], (7,) * 4, a),
+        "in.pairD": ([(0, 0, 0), (a, 0, 0)], (8, 8), a),
+    }
+    for name, (coords, types, d) in templates.items():
+        _molecule_template(os.path.join(case_dir, name), coords, types, d)
+    rows, mol_rows = trimer_bed(n_clumps, floor_d, press)
+    _data_file(os.path.join(case_dir, "In_initial.in"), rows, box, 8,
+               mol_rows)
+    return case_dir
+
+
+def extras_bed(n_particles=131072, cohesion_model=None, lubrication=False,
+               dtype=torch.float32, device=None):
+    """(DEMConfig, particles) of the bench lattice (bench_case: 1 mm
+    spheres at pitch 1.01 mm between three wall pairs) with `fix cohesive`
+    (cohesion_model 0 or 1; None = off) and/or `pair lubricate/poly`
+    switched on, the table sized by the case loader's ring rule
+    (io.case.neighbor_ring). With smax a fifth of a diameter and the
+    lubrication cutoff at gaps of a quarter of a diameter the ring stays
+    the contact cutoff 1.6 d and K = 29: the 18 lattice neighbours
+    inside it fit, and the (K, N, 11) partner gather is 167 MB in f32 at
+    131,072 particles. Cohesion: Hamaker 1e-15 J, lam = smin = 1e-7 m
+    (the saturated force is 5% of a particle's weight). Lubrication:
+    water, log terms, FLD drag with the volume-fraction correction, the
+    inner cutoff just above a diameter. The particles get seeded random
+    velocities up to 0.01 m/s and spins to match, so that the
+    velocity-proportional lubrication terms are not zero. Before
+    setup_forces; on `device` (by default the CUDA card)."""
+    import dataclasses
+
+    from sedifoam_tpu_torch import bench_case
+    from sedifoam_tpu_torch.config import CohesionParams
+    from sedifoam_tpu_torch.dem.lubrication import LubricationParams
+    from sedifoam_tpu_torch.io.case import neighbor_ring
+
+    device = default_device(device)
+    size = dict(bench_case.FULL)
+    if n_particles < size["n_particles"]:
+        # a window of the lattice's first particles in the same box
+        size["n_particles"] = n_particles
+    cfg = bench_case.build_config(**size)
+    _, particles = bench_case.build_state(cfg, n_particles, dtype=dtype,
+                                          device=device)
+    d = 1e-3
+    L = cfg.grid.lengths
+    cohe = None if cohesion_model is None else CohesionParams(
+        ah=1e-15, lam=1e-7, smin=1e-7, smax=0.2 * d, model=cohesion_model)
+    lub = LubricationParams(
+        mu=1e-3, flaglog=1, flagfld=1, cut_inner=1.001 * d, cut=1.25 * d,
+        flag_hi=1, flag_vf=1, box_volume=L[0] * L[1] * L[2]) \
+        if lubrication else None
+    skin, cutoff, ring, k = neighbor_ring(d, d, cohe, lub)
+    dem = dataclasses.replace(cfg.dem, cohesion=cohe, lubrication=lub,
+                              skin=skin, cutoff=cutoff, audit_ring=ring,
+                              nbr_k=k)
+    n = particles.n_capacity
+    particles = particles._replace(
+        shear=torch.zeros((3, k, n), dtype=dtype, device=device),
+        nbr_idx=torch.full((k, n), n, dtype=torch.int32, device=device))
+    rng = np.random.RandomState(43)
+    vmax = 0.01
+    vel = torch.as_tensor(rng.uniform(-vmax, vmax, (n, 3)), dtype=dtype,
+                          device=device)
+    omega = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, 3)) * vmax / (0.5 * d),
+                            dtype=dtype, device=device)
+    return dem, particles._replace(vel=vel, v_old=vel.clone(), omega=omega)

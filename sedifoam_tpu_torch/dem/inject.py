@@ -8,8 +8,9 @@ is seeded at each cell center inside addParticleBox (subsampled by
 reduceNumberFactor, positions jittered by randomPerturb); deleteParticle
 clears a box region; deleteBeforeAdd clears the seed region first.
 
-The random draws are jax.random's threefry2x32 `split` and `uniform`
-(the partitionable variant, jax's default), written in plain torch on
+The random draws are jax.random's threefry2x32 `split`, `uniform` and
+`normal` (the partitionable variant, jax's default; `normal` feeds the
+DNS forcing of fluid/bodyforce.py), written in plain torch on
 int64 tensors that hold uint32 values. They are pure functions of the
 state's `rng_key`, so a checkpoint captures the generator, and a JAX
 checkpoint resumed here draws the same perturbations bit for bit.
@@ -88,6 +89,19 @@ def uniform(key, shape, dtype=torch.float64):
     else:
         raise ValueError(f"uniform: no draw for dtype {dtype}")
     return torch.clamp((f - 1.0).reshape(shape), min=0.0)
+
+
+def normal(key, shape, dtype=torch.float64):
+    """jax.random.normal(key, shape, dtype): sqrt(2) * erfinv(u), u the
+    uniform draw mapped onto [nextafter(-1, 0), 1) exactly as jax maps
+    it, so u matches bit for bit. erfinv is another polynomial here than
+    in XLA: the values agree to round-off, not to bits."""
+    np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+    lo = np.nextafter(np_dtype(-1.0), np_dtype(0.0))
+    span = np_dtype(1.0) - lo                       # rounded in dtype
+    u = uniform(key, shape, dtype) * float(span) + float(lo)
+    u = torch.clamp(u, min=float(lo))
+    return math.sqrt(2.0) * torch.special.erfinv(u)
 
 
 def seed_positions(grid: Grid, box, reduce_factor: int) -> np.ndarray:

@@ -5,8 +5,11 @@ Reproduces one LAMMPS `run N pre no post no` as a Python loop over
 substeps:
 
   initial_integrate (nve/sphere) -> pair+wall contact forces ->
-  post_force fixes (gravity, fdrag incl. per-substep added mass) ->
-  final_integrate
+  post_force fixes (gravity, fdrag incl. per-substep added mass,
+  cohesion) -> final_integrate
+
+Rigid clumps (dem/rigid.py) replace the per-particle motion of their
+members in both integrate halves.
 
 `setup_forces` is the one-time setup() pass (shearupdate off, matching
 pair_gran_hertzFix_history.cpp:65-66). The binned Verlet-skin rebuild
@@ -19,6 +22,8 @@ from __future__ import annotations
 import torch
 
 from sedifoam_tpu_torch.config import DEMConfig
+from sedifoam_tpu_torch.dem.cohesion import (cohesion_forces,
+                                             cohesion_forces_binned)
 from sedifoam_tpu_torch.dem.pair import pair_forces
 from sedifoam_tpu_torch.dem.state import ParticleState
 from sedifoam_tpu_torch.dem.walls import wall_forces
@@ -31,14 +36,6 @@ def _require_ported(cfg: DEMConfig):
         raise NotImplementedError(
             f"DEMConfig.backend={cfg.backend!r}: only 'binned' and 'dense' "
             "are ported")
-    if cfg.cohesion is not None:
-        raise NotImplementedError(
-            "DEMConfig.cohesion (fix cohesive, dem/cohesion.py) is not "
-            "ported")
-    if cfg.lubrication is not None:
-        raise NotImplementedError(
-            "DEMConfig.lubrication (pair_style lubricate/poly, "
-            "dem/lubrication.py) is not ported")
     if cfg.sort_on_rebuild:
         raise NotImplementedError("DEMConfig.sort_on_rebuild is not ported")
 
@@ -83,6 +80,13 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
                              periodic=cfg.periodic,
                              audit_ring=cfg.audit_ring)
     idx, dropped = rebuild_fn(state.pos, state.active)
+    if state.rigid is not None:
+        # intra-body contacts are excluded at the TABLE (rebuild-time
+        # scrub, no per-substep cost), so the contact chain never sees
+        # one: members at fixed overlap exert central equal-opposite
+        # forces that cancel in the body sums anyway (dem/rigid.py)
+        from sedifoam_tpu_torch.dem.rigid import scrub_same_mol
+        idx = scrub_same_mol(idx, state.mol)
     shear = carry_over_shear(state.nbr_idx, idx, state.shear)
     return state._replace(nbr_idx=idx, shear=shear, pos_at_build=state.pos,
                           nbr_dropped=torch.maximum(state.nbr_dropped,
@@ -140,8 +144,34 @@ def compute_forces(state: ParticleState, cfg: DEMConfig,
             0.5 * state.mass[:, None] * (state.dudt - acc))
     v_old = state.vel
 
-    force = f_pair + f_wall + f_grav + f_drag
+    if cfg.backend == "binned":
+        f_cohe = cohesion_forces_binned(state, cfg.cohesion, state.nbr_idx,
+                                        periodic_len=plen)
+    else:
+        f_cohe = cohesion_forces(state, cfg.cohesion, periodic_len=plen)
+
+    force = f_pair + f_wall + f_grav + f_drag + f_cohe
     torque = tq_pair + tq_wall
+
+    if cfg.lubrication is not None:
+        # wall-bounded suspension volume for the VF-corrected FLD terms
+        # (pair_lubricate_poly.cpp:514-539, recomputed per step for
+        # moving walls :152-177); falls back to the data-file box when
+        # no plane walls bound the domain
+        from sedifoam_tpu_torch.dem import lubrication as _lub
+        vol_T = None
+        if cfg.walls:
+            vol_T = _lub.wall_bounded_volume(cfg.domain_lo, cfg.domain_hi,
+                                             cfg.walls, step_time)
+        if cfg.backend == "binned":
+            f_lub, tq_lub = _lub.lubrication_forces_binned(
+                state, cfg.lubrication, state.nbr_idx, periodic_len=plen,
+                vol_T=vol_T)
+        else:
+            f_lub, tq_lub = _lub.lubrication_forces(
+                state, cfg.lubrication, periodic_len=plen, vol_T=vol_T)
+        force = force + f_lub
+        torque = torque + tq_lub
 
     if cfg.frozen_types:
         # `fix ... freeze`: zero total force/torque of the frozen types
@@ -195,6 +225,14 @@ def _substep(state: ParticleState, cfg: DEMConfig, step_time):
     omega = state.omega + dtf * state.torque * iinv
     state = state._replace(pos=pos, vel=vel, omega=omega)
 
+    # rigid clumps (fix rigid/small molecule): body velocity-Verlet
+    # OVERWRITES member pos/vel/omega; the per-particle drift above is
+    # discarded for members (dem/rigid.py)
+    if state.rigid is not None:
+        from sedifoam_tpu_torch.dem import rigid as _rig
+        state = _rig.initial_integrate(state, cfg.dt, cfg.domain_lo,
+                                       cfg.domain_hi, cfg.periodic)
+
     # neighbor maintenance + forces at the new positions
     state = maybe_rebuild_neighbors(state, cfg)
     state = compute_forces(state, cfg, step_time, shearupdate=True)
@@ -202,7 +240,11 @@ def _substep(state: ParticleState, cfg: DEMConfig, step_time):
     # final_integrate
     vel = state.vel + dtf * state.force * minv
     omega = state.omega + dtf * state.torque * iinv
-    return state._replace(vel=vel, omega=omega)
+    state = state._replace(vel=vel, omega=omega)
+    if state.rigid is not None:
+        from sedifoam_tpu_torch.dem import rigid as _rig
+        state = _rig.final_integrate(state, cfg.dt)
+    return state
 
 
 def run_dem(state: ParticleState, cfg: DEMConfig, n_steps: int,

@@ -198,12 +198,11 @@ def gather_partners(state: ParticleState, idx, periodic_len=None):
     return has, pg, delta, rsq
 
 
-def pair_forces_binned(state: ParticleState, params: PairParams, dt: float,
-                       idx, shearupdate: bool = True, periodic_len=None):
-    """Contact forces via the (K, N) neighbor table.
-
-    Returns (force (N,3), torque (N,3), new_shear (3, K, N)).
-    """
+def slot_kinematics(state: ParticleState, idx, periodic_len=None):
+    """Contact geometry and relative surface motion of every slot of the
+    (K, N) table: (has, touch, overlap, r, rinv, rsqinv, delta, vnnr,
+    vtr, meff, poly_arg); from `touch` on, the arguments of
+    forcelaws.contact_force."""
     v, w = state.vel, state.omega
     rad, m = state.radius, state.mass
 
@@ -232,6 +231,19 @@ def pair_forces_binned(state: ParticleState, params: PairParams, dt: float,
     meff = m[None, :] * mj / torch.clamp(m[None, :] + mj, min=1e-300)
     overlap = radsum - r
     poly_arg = overlap * rad[None, :] * radj / torch.clamp(radsum, min=1e-300)
+    return (has, touch, overlap, r, rinv, rsqinv, delta, vnnr, vtr, meff,
+            poly_arg)
+
+
+def pair_forces_binned(state: ParticleState, params: PairParams, dt: float,
+                       idx, shearupdate: bool = True, periodic_len=None):
+    """Contact forces via the (K, N) neighbor table.
+
+    Returns (force (N,3), torque (N,3), new_shear (3, K, N)).
+    """
+    rad = state.radius
+    _, touch, overlap, r, rinv, rsqinv, delta, vnnr, vtr, meff, poly_arg = \
+        slot_kinematics(state, idx, periodic_len)
 
     shear = (state.shear[0], state.shear[1], state.shear[2])
     force_pair, fs_vec, new_shear = contact_force(

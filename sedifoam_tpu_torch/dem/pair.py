@@ -29,17 +29,12 @@ def min_image(delta, periodic_len):
         for d, L in zip(delta, periodic_len))
 
 
-def pair_forces(state, params: PairParams, dt: float,
-                shearupdate: bool = True, periodic_len=None):
-    """Contact forces/torques for all active pairs.
-
-    Returns (force (N,3), torque (N,3), new_shear (3,N,N)).
-    """
+def pair_kinematics(state, periodic_len=None):
+    """Contact geometry and relative surface motion of every ordered pair
+    on the (N, N) tile: (touch, overlap, r, rinv, rsqinv, delta, vnnr,
+    vtr, meff, poly_arg), the arguments of forcelaws.contact_force.
+    Same-body pairs of rigid clumps are no contacts (dem/rigid.py)."""
     n = state.n_capacity
-    if params.style == PAIR_NONE:
-        z = torch.zeros_like(state.vel)
-        return z, z, state.shear
-
     x, v, w = state.pos, state.vel, state.omega
     rad, m = state.radius, state.mass
 
@@ -50,6 +45,11 @@ def pair_forces(state, params: PairParams, dt: float,
 
     valid = state.active[:, None] & state.active[None, :]
     valid &= ~torch.eye(n, dtype=torch.bool, device=x.device)
+    if state.rigid is not None:
+        # exclude intra-body pairs: their granular forces are central
+        # and cancel in the body sums
+        valid &= ~((state.mol[:, None] == state.mol[None, :])
+                   & (state.mol[:, None] > 0))
     touch = valid & (rsq < radsum * radsum)
 
     rsq_safe = torch.where(touch, rsq, torch.ones_like(rsq))
@@ -74,6 +74,22 @@ def pair_forces(state, params: PairParams, dt: float,
     overlap = radsum - r
     poly_arg = overlap * rad[:, None] * rad[None, :] / \
         torch.clamp(radsum, min=1e-300)
+    return touch, overlap, r, rinv, rsqinv, delta, vnnr, vtr, meff, poly_arg
+
+
+def pair_forces(state, params: PairParams, dt: float,
+                shearupdate: bool = True, periodic_len=None):
+    """Contact forces/torques for all active pairs.
+
+    Returns (force (N,3), torque (N,3), new_shear (3,N,N)).
+    """
+    if params.style == PAIR_NONE:
+        z = torch.zeros_like(state.vel)
+        return z, z, state.shear
+
+    rad = state.radius
+    touch, overlap, r, rinv, rsqinv, delta, vnnr, vtr, meff, poly_arg = \
+        pair_kinematics(state, periodic_len)
 
     shear = (state.shear[0], state.shear[1], state.shear[2])
     force_pair, fs_vec, new_shear = contact_force(

@@ -49,10 +49,14 @@ class ParticleState(NamedTuple):
     # worst count of in-ring partners dropped by the K-nearest truncation
     # at any rebuild so far (LAMMPS "dangerous builds" analogue)
     nbr_dropped: torch.Tensor    # scalar int32
-    # rigid clumps are not ported: mol stays 0 and rigid None
+    # multisphere rigid clumps (fix rigid/small molecule; dem/rigid.py):
+    # mol = compacted 1-based body id (0 = free sphere); displace = the
+    # member's offset in its body's principal-axis frame; rigid = the
+    # body SoA, or None when the case has no clumps (the integrator
+    # branches on it, there is no config flag)
     mol: torch.Tensor = None         # (N,) int32
     displace: torch.Tensor = None    # (N, 3)
-    rigid: object = None
+    rigid: object = None             # Optional[dem.rigid.RigidBodies]
 
     @property
     def n_capacity(self):
@@ -80,18 +84,16 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
 
     neighbor_k: K of the binned (K, N) table; None gives the dense
     backend's shapes ((3, N, N) shear, an empty (0, N) table). The
-    lattice backend and rigid clumps (mol > 0) are not ported.
+    lattice backend is not ported.
+
+    mol: per-particle molecule ids (any positive labels; 0/None = free
+    sphere). Any id > 0 groups particles into rigid clumps (dem/rigid.py).
     """
     pos = np.asarray(pos, dtype=np.float64).reshape(-1, 3)
     n = pos.shape[0]
     capacity = capacity or n
     if capacity < n:
         raise ValueError(f"capacity {capacity} < {n} particles")
-    if mol is not None and (np.asarray(mol) > 0).any():
-        raise NotImplementedError(
-            "make_particles(mol=...): rigid clumps (`fix rigid/small "
-            "molecule`, ParticleState.mol/rigid, dem/rigid.py) are not "
-            "ported")
 
     def t(a, dt=None):
         return torch.as_tensor(a, dtype=dt or dtype, device=device)
@@ -116,6 +118,16 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
 
     active = np.zeros(capacity, bool)
     active[:n] = True
+
+    rigid = None
+    mol_arr = np.zeros(n, np.int64) if mol is None else \
+        np.asarray(mol, np.int64).ravel()
+    displace = np.zeros((n, 3))
+    if (mol_arr > 0).any():
+        from sedifoam_tpu_torch.dem.rigid import make_rigid_bodies
+        rigid, mol_arr, displace = make_rigid_bodies(
+            pos, mass, radius, mol_arr, vel=vel, omega=omega, dtype=dtype,
+            device=device)
 
     def zeros(*shape, dt=None):
         return torch.zeros(shape, dtype=dt or dtype, device=device)
@@ -147,7 +159,7 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
         time_to_add=torch.tensor(1e30, dtype=dtype, device=device),
         rng_key=zeros(2, dt=torch.int64),
         nbr_dropped=zeros(dt=torch.int32),
-        mol=zeros(capacity, dt=torch.int32),
-        displace=zeros(capacity, 3),
-        rigid=None,
+        mol=pad1(mol_arr, 0, torch.int32),
+        displace=pad2(displace),
+        rigid=rigid,
     )

@@ -10,9 +10,8 @@ Per fluid timestep (lammpsFoam.C:74-123):
   4. gradP.adjust — channel forcing feedback (chPressureGrad.C:221-300)
   5. DDtU.H      — material derivatives for the coupling forces
 
-The Cvm virtual-mass block and the IBM relaxation term are assembled as
-in the reference. DNS spectral forcing (fluid/bodyforce.py in the
-reference) is not ported: FluidConfig.add_dns_force raises.
+The Cvm virtual-mass block, the IBM relaxation term and the DNS forcing
+term (fluid/bodyforce.py) are assembled as in the reference.
 """
 
 from __future__ import annotations
@@ -130,10 +129,6 @@ class UbEqn(NamedTuple):
 def assemble_ub_eqn(fs: FluidState, grid: Grid, bcs: FluidBCs,
                     cfg: FluidConfig, nu_eff) -> UbEqn:
     """UEqns.H — the fluid-phase momentum matrix."""
-    if cfg.add_dns_force:
-        raise NotImplementedError(
-            "FluidConfig.add_dns_force: the DNS spectral forcing "
-            "(fluid/bodyforce.py) is not ported")
     dt = cfg.dt
     t = fs.time
     beta = fs.beta
@@ -202,6 +197,9 @@ def assemble_ub_eqn(fs: FluidState, grid: Grid, bcs: FluidBCs,
             relax_t = cfg.ibm_relax_time if cfg.ibm_relax_time > 0 \
                 else 3.0 * dt
             tm = tm + linop.Sp(fs.ibm_indicator / relax_t, grid)
+        if cfg.add_dns_force:
+            # UEqns.H RANDOM_TURB branch: + avg(beta)*turbulenceForce
+            tm = tm + linop.source(avg_beta * fs.turbulence_force[j], grid)
         tm = tm.relax(fs.Ub[j], cfg.piso.momentum_relax)
         terms.append(tm)
 

@@ -47,11 +47,11 @@ class FluidState(NamedTuple):
     k: torch.Tensor
     epsilon: torch.Tensor
     nut: torch.Tensor
-    # body-force state: the IBM indicator (0/ibmIndicator); the DNS
-    # forcing fields stay zero (fluid/bodyforce.py is not ported)
+    # body-force state (fluid/bodyforce.py): the IBM indicator
+    # (0/ibmIndicator) and the DNS forcing
     ibm_indicator: torch.Tensor
-    turbulence_force: torch.Tensor
-    dns_f_hat: torch.Tensor
+    turbulence_force: torch.Tensor  # (3,...) DNS forcing field
+    dns_f_hat: torch.Tensor   # (2,3,...) UO spectral state (re, im)
     dns_key: torch.Tensor     # (2,) int64 (uint32 in the reference)
     time: torch.Tensor        # scalar simulation time
     step: torch.Tensor        # scalar int32 time index

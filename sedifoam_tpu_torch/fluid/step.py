@@ -32,15 +32,20 @@ def fluid_step(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig,
     dem/integrate.py), all gated off on the same config switches; the
     solver derives the flag from the SimConfig (solver.need_ddtu).
     `pprecond` is the prebuilt pressure preconditioner (built here when
-    None). DNS spectral forcing is not ported and raises."""
-    if cfg.add_dns_force:
-        raise NotImplementedError(
-            "FluidConfig.add_dns_force: the DNS spectral forcing "
-            "(fluid/bodyforce.py) is not ported")
+    None)."""
     if advance:
         fs = advance_time(fs, cfg)
 
     nu = _turb.nu_eff(fs, grid, cfg)
+
+    if cfg.add_dns_force:
+        from sedifoam_tpu_torch.fluid import bodyforce as _bf
+        uo = _bf.UOForcingState(fs.dns_f_hat, fs.dns_key)
+        uo, force = _bf.uo_forcing_step(
+            uo, grid, cfg.dt, cfg.dns_alpha, cfg.dns_sigma,
+            cfg.dns_k_upper, cfg.dns_k_lower)
+        fs = fs._replace(dns_f_hat=uo.f_hat, dns_key=uo.key,
+                         turbulence_force=force)
 
     # alphaEqn.H: alpha is imposed from the particle averaging; only
     # beta = 1 - alpha is refreshed (derived property here).

@@ -502,6 +502,46 @@ def _read_field_bc(field_file: str, patch_faces: Dict[str, List[int]],
     return _bc.FieldBC(*(s or default for s in slots)), internal
 
 
+def neighbor_ring(d_max, d_min, cohesion=None, lubrication=None,
+                  neighbor_k=None):
+    """(skin, cutoff, audit ring, K) of the binned neighbor table.
+
+    The table is shared by contact, cohesion, and lubrication: its
+    cutoff must cover the widest interaction ring, and K (slots per
+    particle) must cover the densest packing of that ring or the
+    K-nearest truncation silently drops in-range partners (~5.2 spheres
+    per cubic diameter at random close packing). With contact only,
+    correctness needs all partners within 2*r_max + skin; the default K
+    derives from that bound with ~35% headroom (d_min in the denominator
+    guards polydispersity). A given `neighbor_k` is raised where the
+    cutoff needs more."""
+    skin = 0.3 * d_max
+    cutoff = 1.6 * d_max
+    if cohesion is not None:
+        cutoff = max(cutoff, d_max + cohesion.smax + skin)
+    if lubrication is not None:
+        cutoff = max(cutoff, lubrication.cut + skin)
+    ring = (d_max + skin) if (cohesion is None and lubrication is None) \
+        else cutoff
+    if neighbor_k is None:
+        k_needed = int(max(16, math.ceil(1.35 * 5.2 * (ring / d_min) ** 3)))
+        neighbor_k = min(k_needed, 160)
+    else:
+        k_needed = int(math.ceil(5.5 * (cutoff / d_max) ** 3))
+        if k_needed > neighbor_k:
+            neighbor_k = min(k_needed, 160)
+    if k_needed > 160:
+        # the K-nearest table would silently drop in-range partners: be
+        # loud instead of clamping quietly (wide cohesion/lubrication
+        # rings with small d_min under polydispersity land here)
+        warnings.warn(
+            f"neighbor table needs K={k_needed} slots to cover the "
+            f"interaction ring (cutoff={cutoff:.4g}, d_min={d_min:.4g}) "
+            f"but is capped at 160; in-range partners beyond the 160 "
+            f"nearest will be DROPPED", stacklevel=3)
+    return skin, cutoff, ring, neighbor_k
+
+
 def load_case(case_dir: str, capacity: Optional[int] = None,
               backend: str = "dense", neighbor_k: Optional[int] = None,
               dtype=torch.float64, embed_ogrid: bool = False, device=None):
@@ -731,41 +771,10 @@ def load_case(case_dir: str, capacity: Optional[int] = None,
     if lub is not None:
         lub = dataclasses.replace(lub, box_volume=float(
             (box[1] - box[0]) * (box[3] - box[2]) * (box[5] - box[4])))
-    # the binned neighbor table is shared by contact, cohesion, and
-    # lubrication: its cutoff must cover the widest interaction ring,
-    # and K (slots per particle) must cover the densest packing of that
-    # ring or the K-nearest truncation silently drops in-range partners
-    # (~5.2 spheres per cubic diameter at random close packing).
-    # With contact only, correctness needs all partners within
-    # 2*r_max + skin; the default K derives from that bound with ~35%
-    # headroom (d_min in the denominator guards polydispersity) —
-    # verified bitwise vs the dense backend at just-touching density.
     d_min = float(np.min(lmp.diameter)) if lmp.diameter is not None \
         else d_max
-    skin = 0.3 * d_max
-    cutoff = 1.6 * d_max
-    if lmp.cohesion is not None:
-        cutoff = max(cutoff, d_max + lmp.cohesion.smax + skin)
-    if lub is not None:
-        cutoff = max(cutoff, lub.cut + skin)
-    ring = (d_max + skin) if (lmp.cohesion is None and lub is None) \
-        else cutoff
-    if neighbor_k is None:
-        k_needed = int(max(16, math.ceil(1.35 * 5.2 * (ring / d_min) ** 3)))
-        neighbor_k = min(k_needed, 160)
-    else:
-        k_needed = int(math.ceil(5.5 * (cutoff / d_max) ** 3))
-        if k_needed > neighbor_k:
-            neighbor_k = min(k_needed, 160)
-    if k_needed > 160:
-        # the K-nearest table would silently drop in-range partners — be
-        # loud instead of clamping quietly (wide cohesion/lubrication
-        # rings with small d_min under polydispersity land here)
-        warnings.warn(
-            f"neighbor table needs K={k_needed} slots to cover the "
-            f"interaction ring (cutoff={cutoff:.4g}, d_min={d_min:.4g}) "
-            f"but is capped at 160; in-range partners beyond the 160 "
-            f"nearest will be DROPPED", stacklevel=2)
+    skin, cutoff, ring, neighbor_k = neighbor_ring(
+        d_max, d_min, lmp.cohesion, lub, neighbor_k)
     dem_cfg = DEMConfig(
         dt=dt_dem, pair=lmp.pair, walls=lmp.walls, gravity=lmp.gravity,
         carrier_rho=lmp.carrier_rho, cohesion=lmp.cohesion,
@@ -853,10 +862,23 @@ def load_case(case_dir: str, capacity: Optional[int] = None,
     vel = None
     if lmp.initial_velocity is not None:
         vel = np.tile(np.asarray(lmp.initial_velocity), (n, 1))
-    # rigid clumps (molecule ids) are not ported: make_particles refuses
-    # them, so the reference's extra K budget for intra-body partners
-    # has no counterpart here
     mol = lmp.mol if (lmp.rigid and lmp.mol is not None) else None
+    if mol is not None and backend == "binned":
+        # intra-body partners win the K-nearest selection but are
+        # scrubbed from the table (dem/rigid.scrub_same_mol): budget
+        # extra slots for the worst member's in-ring sibling count so
+        # real neighbors are not displaced
+        ring = dem_cfg.audit_ring or dem_cfg.cutoff
+        k_intra = 0
+        for mid in np.unique(mol[mol > 0]):
+            x = lmp.pos[mol == mid]
+            dist = np.linalg.norm(x[:, None] - x[None], axis=-1)
+            k_intra = max(k_intra, int(
+                ((dist < ring) & (dist > 0)).sum(axis=1).max()))
+        if k_intra:
+            neighbor_k = min(neighbor_k + k_intra, 160)
+            dem_cfg = dataclasses.replace(dem_cfg, nbr_k=neighbor_k)
+            cfg = dataclasses.replace(cfg, dem=dem_cfg)
     particles = make_particles(
         pos=lmp.pos, radius=lmp.diameter / 2.0, density=lmp.density,
         vel=vel, ptype=lmp.ptype, tag=lmp.tag, mol=mol,

@@ -4,7 +4,9 @@
 The file is an npz of ``leaf_<i>`` arrays in ``jax.tree.flatten`` order
 of ``SimState``: NamedTuple fields in declaration order (the port's
 NamedTuples match the reference's field for field), a ``FaceField``
-expands to x, y, z, and None leaves (``rigid``) are skipped. The PRNG
+expands to x, y, z, and None leaves are skipped: ``rigid`` when the case
+has no clumps; with clumps it expands, after ``mol`` and ``displace``,
+to ``RigidBodies``' seven fields (``valid`` as bool). The PRNG
 keys (``rng_key``, ``dns_key``) are stored as uint32, as the reference
 holds them. A checkpoint therefore crosses packages in both directions.
 The DEM contact shear history rides the state, so a resume continues the

@@ -62,14 +62,17 @@ class Simulation:
         self.step_fn = CoupledStep(cfg, state.fluid.p.dtype, self.device)
         self.steps_per_visit = steps_per_host_visit
         # Active-window stepping (runtime/window.py): auto-on for binned
-        # injection cases; every per-substep cost then scales with the
-        # live population, and the kernel runs at each window size
+        # injection cases without rigid clumps; every per-substep cost
+        # then scales with the live population, and the kernel runs at
+        # each window size
         if active_window is None:
             active_window = (cfg.cloud.add_particle > 0
-                             and cfg.dem.backend == "binned")
+                             and cfg.dem.backend == "binned"
+                             and ps.rigid is None)
         self.full_capacity = ps.n_capacity
         self.windowed = bool(active_window
                              and cfg.dem.backend == "binned"
+                             and ps.rigid is None
                              and ps.nbr_idx.shape[0] > 0)
         if self.windowed:
             self._apply_window(first=True)

@@ -379,16 +379,6 @@ def test_ddtu_alone():
     _close(a.DDtUb, b.DDtUb)
 
 
-def test_unported_features_raise():
-    """DNS spectral forcing (fluid/bodyforce.py) still raises, naming
-    its config field."""
-    _, cfg_t, fs_j = _fluid_case()
-    fs_t = fluid_to_torch(fs_j)
-    cfg = dataclasses.replace(cfg_t.fluid, add_dns_force=True)
-    with pytest.raises(NotImplementedError, match="add_dns_force"):
-        tstep.fluid_step(fs_t, cfg_t.grid, cfg_t.bcs, cfg)
-
-
 @pytest.mark.parametrize("graded", [False, True])
 def test_grid_locate_and_fields(graded):
     gj, gt = _grids(graded)
