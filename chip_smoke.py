@@ -25,8 +25,10 @@ which passes or exits nonzero:
    each output written once, counted from the state, over HBM's rate),
    the share of it, the empty kernel's time (the launch floor) and host
    microseconds per call;
-4. main path: initialize, 1 warm-up and 10 timed coupled steps
-   (particle-substeps/s), a per-phase split over 3 more steps; the state
+4. main path: the bench entry point's own loop
+   (sedifoam_tpu_torch.bench.run: initialize, 1 warm-up and 10 timed
+   coupled steps ending in a device-to-host fetch, the neighbor audit;
+   particle-substeps/s), a per-phase split over 3 more steps; the state
    must be finite, nbr_dropped 0, alpha in [0, max_possible_alpha] up to
    f32 round-off of the smoothing transform (1e-6), the
    kernel's launch count must equal the setups + substeps run, and one
@@ -71,7 +73,8 @@ which passes or exits nonzero:
    exactly still, none lost, alpha >= -1e-4, nbr_dropped 0, no same-body
    partner in the table, the run through the kernel against the run
    through the plain chain (<= 1e-3 of scale) and against a second run
-   resumed from a checkpoint at step 5 (bit for bit); ms/step, the split, the two body passes' ms per substep;
+   resumed from a checkpoint at step 5 (bit for bit); ms/step, the
+   split, the two body passes' ms per substep;
 11. extras: the bench lattice (131,072 particles, the loader's K = 29)
    with cohesion (model 0, model 1) and lubrication, setup_forces and 10
    substeps each: finite, nbr_dropped 0, the cohesive and the pairwise
@@ -86,10 +89,28 @@ which passes or exits nonzero:
    steps in f32 and f64: finite, the force nonzero and solenoidal
    (spectral divergence <= 1e3 eps of |K||F|), a second run from the same
    key equal bit for bit; ms per forcing step;
-13. output: nvidia-smi's name/power line, a JSON line with the kernel
+13. bench: sedifoam_tpu_torch.bench at full width, 5 timed blocks of 10
+   steps (the median is the rate), once as it stands and once with
+   DEMConfig.sort_on_rebuild: nbr_dropped 0 in both, the sorted run's
+   rows really moved, and after the 51 steps the two runs agree by tag
+   (pos <= 1e-5, vel <= 2e-3, omega <= 2e-2, alpha/p/Ub <= 1e-4 of
+   scale: f32, and the particle-to-grid sums add in another order); the
+   kernel
+   against its plain version on the sorted state (<= 1e-5), and its
+   device time on the unsorted and the sorted state;
+14. validate: the irregular and the transport-bedload validator
+   (sedifoam_tpu_torch/validate/) at the full mesh of each (72x50x36
+   coarsened 4x, 140x65x60 coarsened 2x, as the reference scripts
+   default), cut in depth only: 200 of 6,000 steps, and 50 settling +
+   250 of 30,000 forced steps; every gate such a run evaluates must
+   hold (finite, rigid members, frozen rows still, no escapes, alpha
+   bounds), `transporting` and `mpm_band` are printed as not evaluated;
+   nbr_dropped 0, launches = setup + substeps;
+15. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, runner, inject, case,
-   clumps and extras, with the N and K it ran at; device time, bound,
-   host time and floor per shape), and last {"ok": true, "device": {...}}.
+   clumps, extras, bench and validate, with the N and K it ran at;
+   device time, bound, host time and floor per shape), and last
+   {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one card; builds into build/kernels/.
 """
@@ -105,7 +126,6 @@ import time
 import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-N_TIMED = 10
 N_SPLIT = 3
 KERNEL_SUBSTEPS = 20
 ALPHA_ROUNDOFF = 1e-6
@@ -122,8 +142,17 @@ CLUMP_KERNEL_SUBSTEPS = 5  # a member's contact lasts 19 substeps
 EXTRAS_SUBSTEPS = 10
 DNS_STEPS = 10
 DNS_N = 64
+BENCH_REPEATS = 5         # timed blocks of 10 steps; the median is reported
+# sorted vs unsorted bench run by tag after 51 steps, of each field's
+# scale (f32; about 10x what an H100 run showed: pos 8.3e-7, vel 2.2e-4,
+# omega 1.7e-3, p 9.2e-6)
+SORT_TOL = {"pos": 1e-5, "vel": 2e-3, "omega": 2e-2, "fluid": 1e-4}
+# the validators' depth: steps of 1e-4 s, whole host visits of 25
+VALIDATE_IRREGULAR_STEPS = 200     # of 6,000
+VALIDATE_BEDLOAD_SETTLE = 50       # of 3,000
+VALIDATE_BEDLOAD_STEPS = 250       # of 30,000
 PROFILE_REPS = 100        # launches per device-time measurement
-PROFILE_TRIES = 3         # profiles before one that lost events fails
+PROFILE_LEAD = 100        # launches before them that a profile may lose
 HOST_CALLS = 1000         # wrapper calls per host-time measurement
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # outside tensor cores
@@ -223,34 +252,39 @@ def run_steps(sim, n, **kw):
 
 def device_us(launch, reps=PROFILE_REPS):
     """Mean device microseconds of launch(r) over r = 0 .. reps-1: the
-    self device time of every kernel that ran, from torch.profiler; by
-    CUDA events around a CUDA graph of the launches where the profiler
-    saw no device time. Each kernel that ran must be seen reps times: a
-    profile that lost events is taken again, at most PROFILE_TRIES
-    times. Returns (us, how, kernel names)."""
+    device time of every kernel that ran, from torch.profiler; by CUDA
+    events around a CUDA graph of the launches where the profiler saw no
+    device time. A profile drops the kernel records of its first
+    launches, the more of them the longer the process has run (none at
+    14 s, 4 at 59 s, 7 at 104 s, idle or busy; the launch records are
+    all there: tests/torch_port_profiler_probe.py): so PROFILE_LEAD
+    launches go before the reps that count, and of each kernel the last
+    records are read, as many as the reps made. The run fails if the
+    profiler saw fewer than that. Returns (us, how, kernel names)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     launch(0)
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for r in range(reps):
-                launch(r)
-            torch.cuda.synchronize()
-        total, counts = 0.0, {}
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", None)
-            t = e.self_cuda_time_total if t is None else t
-            if t > 0:
-                total += t
-                counts[e.key.split("(")[0]] = e.count
-        if not counts:
-            break
-        if all(c == reps for c in counts.values()):
-            return total / reps, "profiler", sorted(counts)
-        say(f"profiler: kernels seen {counts} times, not {reps}: again")
-    else:
-        fail(f"the profiler lost kernel events in {PROFILE_TRIES} profiles")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for r in range(PROFILE_LEAD + reps):
+            launch(r % reps)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name.split("(")[0], []).append(
+                (e.time_range.start, e.time_range.elapsed_us()))
+    total = 0.0
+    for name, seen in by_name.items():
+        # kernels of this name in one launch
+        each = -(-len(seen) // (PROFILE_LEAD + reps))
+        if len(seen) < each * reps:
+            fail(f"the profiler saw {name} {len(seen)} times in "
+                 f"{PROFILE_LEAD + reps} launches")
+        total += sum(us for _, us in sorted(seen)[-each * reps:])
+    if by_name:
+        return total / reps, "profiler", sorted(by_name)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for r in range(reps):
@@ -372,8 +406,9 @@ def measure_chain(label, p, cfg_dem, floor):
     out["x_floor"] = out["device_ms"] / out["floor_ms"]
     say(f"kernel [{label}] N={out['N']} K={out['K']} W={out['W']} "
         f"{out['dtype']}, {out['slot_warps']} slot warps: device "
-        f"{out['device_ms']:.5f} ms ({how}, mean of {PROFILE_REPS}; {', '.join(names)}); bound {out['bound_ms']:.5f} "
-        f"ms by {out['bound_by']} ({out['bytes']} B, "
+        f"{out['device_ms']:.5f} ms ({how}, mean of {PROFILE_REPS}; "
+        f"{', '.join(names)}); bound {out['bound_ms']:.5f} ms by "
+        f"{out['bound_by']} ({out['bytes']} B, "
         f"{out['touching_slots']} touching slots, {out['wall_contacts']} "
         f"wall contacts), {100 * out['share_of_bound']:.1f}% of it; floor "
         f"{out['floor_ms']:.5f} ms, device = {out['x_floor']:.2f} x floor; "
@@ -581,6 +616,7 @@ def phase_kernel(dev):
               ("window 65536", window_slice(p, 65536), cfg.dem),
               ("clumps f32", kp, kcfg.dem), ("extras f32", xp, dem_x)]
     floor = floor_us()
+    res["floor_us"] = floor
     res["shapes"] = [measure_chain(label, q, dem, floor)
                      for label, q, dem in shapes]
     return res
@@ -667,29 +703,22 @@ def extras_table_case(dev):
 
 def phase_main_path(dev):
     import torch
-    from sedifoam_tpu_torch import bench_case
+    from sedifoam_tpu_torch import bench, bench_case
     from sedifoam_tpu_torch.coupling import cloud
     from sedifoam_tpu_torch.dem import fused
     from sedifoam_tpu_torch.fluid.step import advance_time, fluid_step
     from sedifoam_tpu_torch.solver import CoupledStep, need_ddtu
-    cfg = bench_case.build_config(**bench_case.FULL)
     n = bench_case.FULL["n_particles"]
-    sub = cfg.cloud.sub_steps
-    fluid, particles = bench_case.build_state(cfg, n, torch.float32, dev)
-    step = CoupledStep(cfg, dtype=torch.float32, device=dev)
 
+    # the bench entry point's own loop: initialize, 1 warm-up, its 10
+    # timed steps ending in a device-to-host fetch, the neighbor audit
     fused.LAUNCHES = 0
-    state = step.initialize(fluid, particles)
-    state = step(state)                                    # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(N_TIMED):
-        state = step(state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rate = n * sub * N_TIMED / wall
-    say(f"main path: {N_TIMED} coupled steps in {wall:.4f} s = "
-        f"{wall / N_TIMED * 1e3:.3f} ms/step, {rate:.1f} "
+    run = bench.run(device=dev)
+    cfg, step, state = run.cfg, run.step, run.state
+    sub = cfg.cloud.sub_steps
+    wall, rate = run.walls[0], run.rates[0]
+    say(f"main path: {run.n_timed} coupled steps in {wall:.4f} s = "
+        f"{wall / run.n_timed * 1e3:.3f} ms/step, {rate:.1f} "
         "particle-substeps/s")
 
     # per-phase split: coupled_step's three phases, CUDA events between
@@ -718,7 +747,7 @@ def phase_main_path(dev):
         f"{split[2]:.3f} ms")
 
     launches = fused.LAUNCHES
-    n_steps = 1 + N_TIMED + N_SPLIT
+    n_steps = 1 + run.n_timed + N_SPLIT
 
     # host syncs of one coupled step, as torch's sync debug mode reports
     # them (outside the counted and timed runs: same path, same count)
@@ -1210,22 +1239,6 @@ def phase_entry(dev):
         fail(f"run_case summary {summary}")
 
 
-def same_body_slots(p):
-    """Table slots of p that hold a partner of the particle's own body."""
-    n = p.n_capacity
-    j = p.nbr_idx.clamp(0, n - 1).long()
-    return int(((p.mol[j] == p.mol[None, :]) & (p.mol[None, :] > 0)
-                & (p.nbr_idx < n)).sum())
-
-
-def member_gaps(p):
-    """Distances between consecutive members of each clump (the loader
-    keeps a clump's members in adjacent rows, in tag order)."""
-    import torch
-    members = p.pos[p.mol > 0].reshape(-1, 3, 3)
-    return torch.linalg.norm(members[:, 1:] - members[:, :-1], dim=-1)
-
-
 def phase_clumps(dev):
     """The irregular-grain channel loaded from its written case directory
     at full width, through Simulation, with scripts/validate_irregular.py's
@@ -1235,6 +1248,8 @@ def phase_clumps(dev):
     from sedifoam_tpu_torch.dem import fused, integrate, rigid
     from sedifoam_tpu_torch.runtime.runner import Simulation
     from sedifoam_tpu_torch.solver import CoupledStep
+    from sedifoam_tpu_torch.validate.irregular import (member_gaps,
+                                                       same_body_slots)
     full = cases.IRREGULAR_FULL
     cfg, fluid, particles, t_write, t_load = load_clumps(dev, full["counts"])
     n0 = int(particles.active.sum())
@@ -1601,6 +1616,142 @@ def phase_dns(dev):
             fail(f"dns {name}: two runs from one key differ in {differ}")
 
 
+def phase_bench(dev, floor):
+    """The bench entry point (sedifoam_tpu_torch.bench) at full width,
+    BENCH_REPEATS timed blocks each, once as it stands and once with
+    bin-sorted rebuilds: the same physics by tag, the kernel against its
+    plain version on the sorted state, its device time on both states."""
+    import torch
+    from sedifoam_tpu_torch import bench
+    from sedifoam_tpu_torch.dem import fused
+
+    def report(label):
+        def fn(i, wall, rate):
+            say(f"bench [{label}] repeat {i + 1}/{BENCH_REPEATS}: "
+                f"{wall:.4f} s, {rate:.1f} particle-substeps/s")
+        return fn
+
+    fused.LAUNCHES = 0
+    fused.LAUNCH_SIZES.clear()
+    runs = {}
+    for label, sort in (("unsorted", False), ("sorted", True)):
+        runs[label] = bench.run(device=dev, repeats=BENCH_REPEATS,
+                                sort_on_rebuild=sort, report=report(label))
+        line = bench.result_line(runs[label].value)
+        say(f"bench [{label}]: median of {BENCH_REPEATS}: "
+            + json.dumps(line))
+    torch.cuda.synchronize()
+    launches = fused.LAUNCHES
+    by_n = dict(fused.LAUNCH_SIZES)
+    plain, srt = runs["unsorted"], runs["sorted"]
+    sub = plain.cfg.cloud.sub_cycles * plain.cfg.cloud.sub_steps
+    n_steps = 1 + BENCH_REPEATS * plain.n_timed
+    expected = 2 * (1 + n_steps * sub)
+    say(f"bench: contact_chain launches {launches} (2 runs x (1 setup + "
+        f"{n_steps} steps x {sub} substeps) = {expected}) by N {by_n}")
+    if launches != expected:
+        fail(f"bench: kernel launched {launches} times, expected {expected}")
+
+    pa, pb = plain.state.particles, srt.state.particles
+    for label, r in runs.items():
+        check_finite(r.state, f"bench {label}")
+        if int(r.state.particles.nbr_dropped) != 0:
+            fail(f"bench {label}: neighbor audit dropped in-ring partners")
+    n = pa.n_capacity
+    rows = torch.arange(1, n + 1, device=dev, dtype=pb.tag.dtype)
+    moved = int((pb.tag != rows).sum())
+    if not torch.equal(pa.tag, rows) or moved == 0:
+        fail(f"bench: the sorted run moved {moved} rows; the unsorted run "
+             f"kept its rows: {torch.equal(pa.tag, rows)}")
+    oa, ob = torch.argsort(pa.tag), torch.argsort(pb.tag)
+    if not torch.equal(pa.tag[oa], pb.tag[ob]):
+        fail("bench: sorted and unsorted runs hold different tags")
+    errs = {name: rel_err(getattr(pa, name)[oa], getattr(pb, name)[ob])
+            for name in ("pos", "vel", "omega")}
+    ferrs = {name: rel_err(getattr(plain.state.fluid, name),
+                           getattr(srt.state.fluid, name))
+             for name in ("alpha", "p", "Ub")}
+    say(f"bench: sorted vs unsorted after {n_steps} steps, rows matched by "
+        f"tag ({moved} of {n} rows moved): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in {**errs, **ferrs}.items())
+        + f" (tol: pos {SORT_TOL['pos']:.0e}, vel {SORT_TOL['vel']:.0e}, "
+        f"omega {SORT_TOL['omega']:.0e}, fluid {SORT_TOL['fluid']:.0e} of "
+        "scale; f32: the particle-to-grid sums and the rebuilt tables' "
+        "ties add in another order)")
+    if any(errs[k] > SORT_TOL[k] for k in errs) or \
+            max(ferrs.values()) > SORT_TOL["fluid"]:
+        fail("bench: the sorted run disagrees with the unsorted run")
+
+    # the kernel on the sorted state (partner rows near each other)
+    res = compare_chain("bench sorted f32", pb, srt.cfg.dem, True, 1e-5,
+                        may_be_zero=("wall_shear",))
+    shapes = [measure_chain("bench run unsorted f32", pa, plain.cfg.dem,
+                            floor),
+              measure_chain("bench run sorted f32", pb, srt.cfg.dem, floor)]
+    us = [sh["device_ms"] * 1e3 for sh in shapes]
+    say(f"bench: kernel device time unsorted {us[0]:.2f} us, sorted "
+        f"{us[1]:.2f} us (same bytes: bound "
+        f"{shapes[1]['bound_ms'] * 1e3:.2f} us)")
+    return {"launches": launches, "N": sorted(by_n), "K": srt.cfg.dem.nbr_k,
+            "max_abs_err": res["max_abs_err"], "shapes": shapes,
+            "rates": {k: r.value for k, r in runs.items()}}
+
+
+def phase_validate(dev):
+    """The irregular and the bedload validator through the battery's
+    runners' modules at the full mesh of each (coarsen 4 and 2, the
+    validators' defaults), cut in depth only; every gate that a cut run
+    evaluates must hold."""
+    from sedifoam_tpu_torch.dem import fused
+    from sedifoam_tpu_torch.validate import battery, bedload, irregular
+    out = {}
+    dt = 1e-4
+    specs = (
+        ("irregular", lambda: irregular.run(
+            t_end=VALIDATE_IRREGULAR_STEPS * dt - 0.5 * dt, device=dev),
+         VALIDATE_IRREGULAR_STEPS, 0, 160,
+         f"t_end 0.6 s (6,000 steps) cut to {VALIDATE_IRREGULAR_STEPS} "
+         "steps"),
+        ("transport-bedload", lambda: bedload.run(
+            t_end=VALIDATE_BEDLOAD_STEPS * dt - 0.5 * dt,
+            t_settle=VALIDATE_BEDLOAD_SETTLE * dt - 0.5 * dt, device=dev),
+         VALIDATE_BEDLOAD_STEPS,
+         VALIDATE_BEDLOAD_SETTLE, 16,
+         f"0.3 s settling + 3.0 s (33,000 steps) cut to "
+         f"{VALIDATE_BEDLOAD_SETTLE} + {VALIDATE_BEDLOAD_STEPS} steps"))
+    for name, fn, steps, settle, K, cut in specs:
+        fused.LAUNCHES = 0
+        fused.LAUNCH_SIZES.clear()
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        launches, by_n = fused.LAUNCHES, dict(fused.LAUNCH_SIZES)
+        say(f"validate [{name}]: {cut}; {wall:.1f} s in all, "
+            f"{res['wall_time_s'] / steps * 1e3:.1f} ms/step; "
+            + json.dumps(res))
+        say(f"validate [{name}]: gates evaluated {sorted(res['gates'])}, "
+            f"not evaluated at this length {res['not_evaluated']}")
+        if res["steps"] != steps + settle:
+            fail(f"validate {name}: ran {res['steps']} steps, not "
+                 f"{steps + settle}")
+        if not battery.judge(name, res):
+            fail(f"validate {name}: gates {res['gates']}")
+        if res["nbr_dropped"] != 0:
+            fail(f"validate {name}: neighbor audit dropped "
+                 f"{res['nbr_dropped']} in-ring partners")
+        # 1 setup, the steps, and timing_split's 1 + 5 evolves
+        sub = 50 if name == "irregular" else 40
+        expected = 1 + (steps + settle + 6) * sub
+        say(f"validate [{name}]: contact_chain launches {launches} (1 setup"
+            f" + ({steps + settle} steps + 6 evolves of the timing split) "
+            f"x {sub} substeps = {expected}) by N {by_n} at K {K}")
+        if launches != expected:
+            fail(f"validate {name}: kernel launched {launches} times, "
+                 f"expected {expected}")
+        out[name] = {"launches": launches, "N": sorted(by_n), "K": K}
+    return out
+
+
 def main():
     try:
         import torch
@@ -1622,26 +1773,31 @@ def main():
     clumps = phase_clumps(dev)
     extras = phase_extras(dev)
     phase_dns(dev)
+    bench = phase_bench(dev, k["floor_us"])
+    validate = phase_validate(dev)
     say(smi)
     ran_at = [{"N": 131072, "K": 8, "launches": launches - inject_launches
                - case["launches"]}]
     ran_at += [{"N": n, "K": 8, "launches": c} for n, c in by_n.items()]
-    for path in (case, clumps, extras):
+    paths = (case, clumps, extras, bench) + tuple(validate.values())
+    for path in paths:
         ran_at += [{"N": n, "K": path["K"], "launches": path["launches"]}
                    for n in path["N"]]
-    launches += clumps["launches"] + extras["launches"]
-    bench = k["shapes"][0]
+    launches += sum(path["launches"] for path in paths[1:])
+    k["shapes"] += bench["shapes"]
+    bench_rates, bench = bench["rates"], k["shapes"][0]
     say(json.dumps({"kernels": [{
         "name": "contact_chain", "route": "cuda",
         "source": "sedifoam_tpu_torch/csrc/contact_chain.cu",
         "replaces": "sedifoam_tpu/dem/fused.py:33",
-        "launches": launches, "max_abs_err": max(k["max_abs_err"],
-                                                 case["max_abs_err"]),
+        "launches": launches, "max_abs_err": max(
+            k["max_abs_err"], case["max_abs_err"], paths[3]["max_abs_err"]),
         "ms": bench["device_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
         "library_ms": None, "wrapper_ms": k["ms"],
         "case_wrapper_ms": case["ms"], "case_plain_ms": case["plain_ms"],
-        "shapes": k["shapes"], "ran_at": ran_at}]}))
+        "bench_rates": bench_rates, "shapes": k["shapes"],
+        "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,6 +12,8 @@ binned DEM contact chain is a hand-written CUDA kernel
 This package never imports JAX.
 """
 
+import functools
+
 import torch
 
 from sedifoam_tpu_torch.grid import Grid  # noqa: F401
@@ -31,6 +33,14 @@ def default_device(device=None) -> torch.device:
         raise RuntimeError('no CUDA device: pass device="cpu" (run_case: '
                            '--device cpu) to run on the CPU')
     return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=256)
+def device_vector(values: tuple, dtype, device) -> torch.Tensor:
+    """A tuple of numbers from a config (gravity, a flow direction, a box
+    corner) as a 1-D tensor, copied to the device once per (values, dtype,
+    device) rather than at every step. Never written in place."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def full_f32_precision():

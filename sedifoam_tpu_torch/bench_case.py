@@ -27,7 +27,8 @@ FULL = dict(n_particles=131072, nx=32, ny=64, nz=32)
 
 
 def build_config(n_particles=131072, nx=32, ny=64, nz=32,
-                 sub_steps=10, backend="binned") -> SimConfig:
+                 sub_steps=10, backend="binned",
+                 sort_on_rebuild=False) -> SimConfig:
     dx = 2e-3
     grid = Grid(nx=nx, ny=ny, nz=nz, dx=dx, dy=dx, dz=dx)
     zg3 = bc.PatchBC(bc.ZERO_GRADIENT, (0.0, 0.0, 0.0))
@@ -66,7 +67,8 @@ def build_config(n_particles=131072, nx=32, ny=64, nz=32,
                         backend=backend, nbr_k=8, max_per_bin=10,
                         cutoff=2 * r * 1.6, skin=0.6 * r,
                         audit_ring=2 * r + 0.6 * r,
-                        domain_lo=(0.0, 0.0, 0.0), domain_hi=L)
+                        domain_lo=(0.0, 0.0, 0.0), domain_hi=L,
+                        sort_on_rebuild=sort_on_rebuild)
     return SimConfig(grid=grid, bcs=bcs, fluid=fluid_cfg, cloud=cloud_cfg,
                      dem=dem_cfg)
 

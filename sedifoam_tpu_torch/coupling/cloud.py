@@ -89,10 +89,11 @@ def evolve(fluid: FluidState, particles: ParticleState,
     inject_on = ccfg.add_particle > 0 or ccfg.delete_particle > 0
     if inject_on:
         from sedifoam_tpu_torch.dem import inject as _inject
-        sites = torch.as_tensor(
-            _inject.seed_positions(grid, ccfg.add_box,
-                                   ccfg.reduce_number_factor),
-            dtype=particles.pos.dtype, device=particles.pos.device)
+        sites = grid.const(
+            ("inject_sites", tuple(ccfg.add_box), ccfg.reduce_number_factor),
+            lambda: _inject.seed_positions(grid, ccfg.add_box,
+                                           ccfg.reduce_number_factor),
+            particles.pos.dtype, particles.pos.device)
 
     alpha, Ua = fluid.alpha, fluid.Ua
     for k in range(ccfg.sub_cycles):
@@ -118,11 +119,13 @@ def evolve(fluid: FluidState, particles: ParticleState,
             fluid.DDtUb, grid, ccfg, fcfg, alpha, fluid.step,
             need_dudt=(ccfg.particle_added_mass or dcfg.carrier_rho != 0.0))
 
-        vel_before = particles.vel
-        particles = particles._replace(fdrag=p_drag, dudt=p_dudt)
+        # p.UOld() = pre-DEM velocity (softParticleCloud.C:570). It rides
+        # the state through the substeps, so a bin-sorted rebuild
+        # (DEMConfig.sort_on_rebuild) permutes it with its rows; nothing
+        # reads it before the next particle_forces
+        particles = particles._replace(fdrag=p_drag, dudt=p_dudt,
+                                       vel_fluid_old=particles.vel)
         particles = _dem.run_dem(particles, dcfg, ccfg.sub_steps, t0=0.0)
-        # p.UOld() = pre-DEM velocity (softParticleCloud.C:570)
-        particles = particles._replace(vel_fluid_old=vel_before)
 
         if ccfg.delete_outside:
             particles = _delete_outside(particles, grid, dcfg)

@@ -15,6 +15,7 @@ from typing import Tuple
 
 import torch
 
+from sedifoam_tpu_torch import device_vector
 from sedifoam_tpu_torch.config import CloudConfig, FluidConfig
 from sedifoam_tpu_torch.coupling import drag as _drag
 from sedifoam_tpu_torch.coupling.transfer import gather_fields, particle_cells
@@ -89,8 +90,7 @@ def particle_forces(
     if ccfg.particle_pressure_grad:
         p_drag = p_drag - gp * vol[:, None]
     if ccfg.particle_buoyancy:
-        g = torch.tensor(fcfg.gravity, dtype=p_drag.dtype,
-                         device=p_drag.device)
+        g = device_vector(tuple(fcfg.gravity), p_drag.dtype, p_drag.device)
         p_drag = p_drag - g[None, :] * (rhob * vol)[:, None]
     if ccfg.particle_added_mass:
         dupdt = (state.vel - state.vel_fluid_old) / dt
@@ -159,8 +159,8 @@ def particle_forces(
         for a in range(3):
             inside &= (state.pos[:, a] >= box[2 * a]) & \
                       (state.pos[:, a] <= box[2 * a + 1])
-        target = torch.tensor(ccfg.inlet_force, dtype=p_drag.dtype,
-                              device=p_drag.device)
+        target = device_vector(tuple(ccfg.inlet_force), p_drag.dtype,
+                               p_drag.device)
         f_inlet = state.mass[:, None] * (target[None, :] - state.vel) / dt
         p_drag = torch.where(inside[:, None], f_inlet, p_drag)
 

@@ -34,11 +34,10 @@ def particle_cells(state: ParticleState, grid: Grid):
 def cell_volume_at(cells, grid: Grid, like):
     """Host-cell volume per particle: scalar on uniform grids, a gather on
     graded ones."""
-    V = grid.cell_volume
+    V = grid.cell_volume_like(like)
     if grid.uniform:
         return V
-    return torch.as_tensor(V, dtype=like.dtype,
-                           device=like.device).reshape(-1)[cells]
+    return V.reshape(-1)[cells]
 
 
 def _segment_sum(w, cells, n_cells):
@@ -130,9 +129,7 @@ def particle_to_eulerian(state: ParticleState, grid: Grid,
     """
     cells = particle_cells(state, grid)
     vol = state.volume
-    V = grid.cell_volume
-    if not grid.uniform:
-        V = torch.as_tensor(V, dtype=vol.dtype, device=vol.device)
+    V = grid.cell_volume_like(vol)
 
     gamma, Ue = scatter_fields(cells, state.active, grid,
                                vol, vol[:, None] * state.vel)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from sedifoam_tpu_torch import device_vector
 from sedifoam_tpu_torch.config import DEMConfig
 from sedifoam_tpu_torch.dem.cohesion import (cohesion_forces,
                                              cohesion_forces_binned)
@@ -36,8 +37,6 @@ def _require_ported(cfg: DEMConfig):
         raise NotImplementedError(
             f"DEMConfig.backend={cfg.backend!r}: only 'binned' and 'dense' "
             "are ported")
-    if cfg.sort_on_rebuild:
-        raise NotImplementedError("DEMConfig.sort_on_rebuild is not ported")
 
 
 def scrub_deactivated(state: ParticleState, cfg: DEMConfig) -> ParticleState:
@@ -59,7 +58,10 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
     _require_ported(cfg)
     if cfg.backend != "binned":
         return state
-    from sedifoam_tpu_torch.dem.neighbor import carry_over_shear, make_binner
+    from sedifoam_tpu_torch.dem.neighbor import (carry_over_shear,
+                                                 make_binner,
+                                                 make_sort_order,
+                                                 permute_particle_state)
 
     if not force:
         disp = state.pos - state.pos_at_build
@@ -75,6 +77,11 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
         if not bool(max_d2 > (0.5 * cfg.skin) ** 2):   # host sync
             return state
 
+    if cfg.sort_on_rebuild:
+        sort_fn = make_sort_order(cfg.domain_lo, cfg.domain_hi, cfg.cutoff,
+                                  periodic=cfg.periodic)
+        state = permute_particle_state(state,
+                                       sort_fn(state.pos, state.active))
     rebuild_fn = make_binner(cfg.domain_lo, cfg.domain_hi, cfg.cutoff,
                              cfg.nbr_k, cfg.max_per_bin,
                              periodic=cfg.periodic,
@@ -131,8 +138,8 @@ def compute_forces(state: ParticleState, cfg: DEMConfig,
         f_wall, tq_wall, wall_shear = wall_forces(
             state, cfg.walls, dt, step_time, shearupdate)
 
-    g = torch.tensor(cfg.gravity, dtype=state.vel.dtype,
-                     device=state.vel.device)
+    g = device_vector(tuple(cfg.gravity), state.vel.dtype,
+                      state.vel.device)
     f_grav = state.mass[:, None] * g[None, :]
 
     # fix fdrag post_force (fix_fluid_drag.cpp:114-164)
@@ -201,12 +208,16 @@ def setup_forces(state: ParticleState, cfg: DEMConfig,
 
 def _substep(state: ParticleState, cfg: DEMConfig, step_time):
     dtf = 0.5 * cfg.dt
-    one = torch.ones_like(state.mass)
-    zero = torch.zeros_like(state.mass)
-    minv = torch.where(state.active, one / state.mass, zero)[:, None]
-    iinv = torch.where(state.active,
-                       one / (_INERTIA * state.mass * state.radius ** 2),
-                       zero)[:, None]
+
+    def inverses(st):
+        one = torch.ones_like(st.mass)
+        zero = torch.zeros_like(st.mass)
+        return (torch.where(st.active, one / st.mass, zero)[:, None],
+                torch.where(st.active,
+                            one / (_INERTIA * st.mass * st.radius ** 2),
+                            zero)[:, None])
+
+    minv, iinv = inverses(state)
 
     # initial_integrate (nve/sphere)
     vel = state.vel + dtf * state.force * minv
@@ -235,6 +246,12 @@ def _substep(state: ParticleState, cfg: DEMConfig, step_time):
 
     # neighbor maintenance + forces at the new positions
     state = maybe_rebuild_neighbors(state, cfg)
+    if cfg.sort_on_rebuild:
+        # a rebuild may have permuted the rows: the inverse masses follow
+        # them (the reference keeps the ones it took before the rebuild,
+        # which is the same thing only while every particle has one mass
+        # and radius and no row is inactive)
+        minv, iinv = inverses(state)
     state = compute_forces(state, cfg, step_time, shearupdate=True)
 
     # final_integrate

@@ -26,10 +26,35 @@ from typing import Tuple
 
 import torch
 
+from sedifoam_tpu_torch import device_vector
 from sedifoam_tpu_torch.config import PairParams
 from sedifoam_tpu_torch.dem.forcelaws import contact_force, vcross
 from sedifoam_tpu_torch.dem.pair import min_image
 from sedifoam_tpu_torch.dem.state import ParticleState
+
+
+def bin_counts(lo, hi, cutoff) -> Tuple[int, int, int]:
+    """Bins per axis of a bin grid of pitch >= cutoff over the box."""
+    return tuple(max(int((hi[a] - lo[a]) / cutoff), 1) for a in range(3))
+
+
+def bin_ids(pos, active, lo, hi, nb):
+    """(ijk (N, 3) int64, bin_id (N,) int64) of the particles on the
+    nb = (nbx, nby, nbz) bin grid over the box, positions outside clamped
+    into it; inactive rows get the id n_bins, so that a sort parks them
+    last."""
+    dev = pos.device
+    nbx, nby, nbz = nb
+    lo_a = device_vector(tuple(lo), pos.dtype, dev)
+    size = device_vector(((hi[0] - lo[0]) / nbx, (hi[1] - lo[1]) / nby,
+                          (hi[2] - lo[2]) / nbz), pos.dtype, dev)
+    ijk = torch.floor((pos - lo_a) / size).to(torch.int64)
+    ijk = torch.minimum(ijk.clamp(min=0), device_vector(
+        (nbx - 1, nby - 1, nbz - 1), torch.int64, dev))
+    bin_id = (ijk[:, 0] * nby + ijk[:, 1]) * nbz + ijk[:, 2]
+    bin_id = torch.where(active, bin_id,
+                         torch.full_like(bin_id, nbx * nby * nbz))
+    return ijk, bin_id
 
 
 def make_binner(lo: Tuple[float, float, float], hi: Tuple[float, float, float],
@@ -46,9 +71,7 @@ def make_binner(lo: Tuple[float, float, float], hi: Tuple[float, float, float],
     in-ring candidates (distance < audit_ring) the K-nearest selection
     had to discard. With audit_ring == 0 `dropped` is always 0.
     """
-    nbx = max(int((hi[0] - lo[0]) / cutoff), 1)
-    nby = max(int((hi[1] - lo[1]) / cutoff), 1)
-    nbz = max(int((hi[2] - lo[2]) / cutoff), 1)
+    nb = nbx, nby, nbz = bin_counts(lo, hi, cutoff)
     n_bins = nbx * nby * nbz
     if n_bins + 1 >= 2 ** 31:
         raise ValueError(
@@ -56,7 +79,6 @@ def make_binner(lo: Tuple[float, float, float], hi: Tuple[float, float, float],
             "increase the cutoff or shrink the domain")
     K = k_neighbors
     M = max_per_bin
-    nb = (nbx, nby, nbz)
     plen = tuple((hi[a] - lo[a]) if periodic[a] else None for a in range(3))
 
     def axis_offsets(a: int):
@@ -73,16 +95,7 @@ def make_binner(lo: Tuple[float, float, float], hi: Tuple[float, float, float],
         n = pos.shape[0]
         dev = pos.device
         i64 = dict(dtype=torch.int64, device=dev)
-        lo_a = torch.tensor(lo, dtype=pos.dtype, device=dev)
-        size = torch.tensor([(hi[0] - lo[0]) / nbx, (hi[1] - lo[1]) / nby,
-                             (hi[2] - lo[2]) / nbz], dtype=pos.dtype,
-                            device=dev)
-        ijk = torch.floor((pos - lo_a) / size).to(torch.int64)
-        ijk = torch.minimum(ijk.clamp(min=0),
-                            torch.tensor([nbx - 1, nby - 1, nbz - 1], **i64))
-        bin_id = (ijk[:, 0] * nby + ijk[:, 1]) * nbz + ijk[:, 2]
-        bin_id = torch.where(active, bin_id,
-                             torch.full_like(bin_id, n_bins))  # park inactive
+        ijk, bin_id = bin_ids(pos, active, lo, hi, nb)
 
         order = torch.argsort(bin_id, stable=True)    # (N,) particle ids
         sorted_bins = bin_id[order]
@@ -93,7 +106,7 @@ def make_binner(lo: Tuple[float, float, float], hi: Tuple[float, float, float],
         # from an O(n_bins) starts table (dilute boxes have huge bin grids)
         ok_list, nbid_list = [], []
         for (di, dj, dk) in offsets:
-            nijk = ijk + torch.tensor([di, dj, dk], **i64)
+            nijk = ijk + device_vector((di, dj, dk), torch.int64, dev)
             ok = torch.ones(n, dtype=torch.bool, device=dev)
             cols = []
             for a in range(3):
@@ -149,6 +162,73 @@ def make_binner(lo: Tuple[float, float, float], hi: Tuple[float, float, float],
                 dropped.to(torch.int32))
 
     return rebuild
+
+
+def make_sort_order(lo, hi, cutoff, periodic=(False, False, False)):
+    """Makes the bin-sort permutation: order (N,) with new_row -> particle.
+
+    Sorting the SoA by bin at every rebuild makes partner indices in the
+    (K, N) table point into a small local window, so the per-substep
+    partner row gather lands near its predecessor in memory. Inactive
+    particles park at the end (what the active window relies on). The
+    sort is stable, as the reference's: particles of one bin keep their
+    order.
+    """
+    nb = bin_counts(lo, hi, cutoff)
+
+    def sort_order(pos, active):
+        return torch.argsort(bin_ids(pos, active, lo, hi, nb)[1],
+                             stable=True)
+
+    return sort_order
+
+
+def permute_particle_state(st: ParticleState, order) -> ParticleState:
+    """Reorder the fixed-capacity SoA so row r holds particle order[r].
+
+    (N, ...) fields take a row gather; the (3, K, N)/(3, W, N) history
+    tensors and the (K, N) neighbor table permute their N axis (the
+    results are contiguous, as the contact-chain kernel needs);
+    neighbor-table VALUES are relabeled to the new rows (sentinel N maps
+    to N). The dense backend's (3, N, N) history permutes both N axes.
+    Rigid clumps: mol and displace move with their rows; the body SoA
+    (st.rigid) is indexed by body id and stays put.
+    """
+    n = st.n_capacity
+    order = order.long()
+    rank = torch.empty_like(order)               # old row -> new row
+    rank[order] = torch.arange(n, dtype=order.dtype, device=order.device)
+    rank_ext = torch.cat([rank, rank.new_full((1,), n)]).to(torch.int32)
+
+    def p_rows(x):                               # (N, ...) or (N,)
+        return x[order]
+
+    def p_minor(x):                              # (..., N) -> permute last
+        return torch.index_select(x, -1, order)
+
+    if st.nbr_idx.shape[0]:
+        # binned (3, K, N): the K (slot) axis stays fixed; only N moves
+        # (branch on the table, not on shapes: K may equal the capacity)
+        nbr_idx = rank_ext[p_minor(st.nbr_idx).long()]
+        shear = p_minor(st.shear)
+    else:
+        nbr_idx = st.nbr_idx
+        shear = st.shear[:, order][:, :, order]  # dense (3, N, N)
+
+    return st._replace(
+        pos=p_rows(st.pos), vel=p_rows(st.vel), omega=p_rows(st.omega),
+        radius=p_rows(st.radius), mass=p_rows(st.mass),
+        density=p_rows(st.density), ptype=p_rows(st.ptype),
+        tag=p_rows(st.tag), active=p_rows(st.active),
+        force=p_rows(st.force), torque=p_rows(st.torque),
+        shear=shear, wall_shear=p_minor(st.wall_shear),
+        nbr_idx=nbr_idx, pos_at_build=p_rows(st.pos_at_build),
+        fdrag=p_rows(st.fdrag), dudt=p_rows(st.dudt),
+        v_old=p_rows(st.v_old), n0=p_rows(st.n0),
+        sum_delta_fb=p_rows(st.sum_delta_fb),
+        vel_fluid_old=p_rows(st.vel_fluid_old),
+        mol=p_rows(st.mol), displace=p_rows(st.displace),
+    )
 
 
 def carry_over_shear(old_idx, new_idx, old_shear):

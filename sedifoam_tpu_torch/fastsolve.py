@@ -84,10 +84,16 @@ def _axis_eig(faces: Tuple[float, ...], d_coef: float, lo: str, hi: str):
     return fwd, bwd, lam
 
 
-@lru_cache(maxsize=32)
 def _fastdiag_arrays(grid: Grid, d_coefs: Tuple[float, float, float],
                      kinds: Tuple[Tuple[str, str], ...]):
-    """Per-axis transforms + the 3D eigenvalue sum (numpy)."""
+    """Per-axis transforms + the 3D eigenvalue sum (numpy), once per
+    Grid object (Grid.memo: a cache keyed on the Grid itself would keep
+    it, and the device constants it carries, alive)."""
+    return grid.memo(("fastdiag_arrays", d_coefs, kinds),
+                     lambda: _fastdiag_build(grid, d_coefs, kinds))
+
+
+def _fastdiag_build(grid, d_coefs, kinds):
     fwds, bwds, lams = [], [], []
     for a in range(3):
         faces = tuple(float(v) for v in grid.axis_faces(a))

@@ -21,7 +21,6 @@ The wavevector constants are built once per (grid, dtype, device).
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -49,16 +48,20 @@ def init_uo_state(grid: Grid, key=None, dtype=torch.float32,
     )
 
 
-@lru_cache(maxsize=8)
 def _wavevectors(grid: Grid, dtype, device):
-    """(K (3,nx,ny,nz), |K|, K/(|K|+eps)) on the device, made once."""
-    ks = [2.0 * np.pi * np.fft.fftfreq(n, d)
-          for n, d in zip(grid.shape, grid.spacing)]
-    KX, KY, KZ = np.meshgrid(*ks, indexing="ij")
-    K = torch.as_tensor(np.stack([KX, KY, KZ]), dtype=dtype, device=device)
-    k_mag = torch.sqrt(torch.sum(K * K, dim=0))
-    # solenoidal projection direction (calcDNSForce.H:31-37)
-    return K, k_mag, K / (k_mag + 1e-6)[None]
+    """(K (3,nx,ny,nz), |K|, K/(|K|+eps)) on the device, made once per
+    Grid object, dtype and device (Grid.memo)."""
+    def make():
+        ks = [2.0 * np.pi * np.fft.fftfreq(n, d)
+              for n, d in zip(grid.shape, grid.spacing)]
+        KX, KY, KZ = np.meshgrid(*ks, indexing="ij")
+        K = torch.as_tensor(np.stack([KX, KY, KZ]), dtype=dtype,
+                            device=device)
+        k_mag = torch.sqrt(torch.sum(K * K, dim=0))
+        # solenoidal projection direction (calcDNSForce.H:31-37)
+        return K, k_mag, K / (k_mag + 1e-6)[None]
+
+    return grid.memo(("wavevectors", dtype, torch.device(device)), make)
 
 
 def _ifftn_real(re, im):

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from sedifoam_tpu_torch import bc as _bc
-from sedifoam_tpu_torch import linop, linsolve, ops
+from sedifoam_tpu_torch import device_vector, linop, linsolve, ops
 from sedifoam_tpu_torch.config import FluidConfig
 from sedifoam_tpu_torch.fluid.state import FluidBCs, FluidState
 from sedifoam_tpu_torch.grid import FaceField, Grid
@@ -38,9 +38,8 @@ def _interp_zg(c, grid):
 
 def gravity_flux(grid: Grid, g, dtype=torch.float64, device=None) -> FaceField:
     """(g & Sf) as a face field."""
-    area = grid.face_area
     zf = grid.zeros_faces(dtype, device)
-    return FaceField(*(zf[a] + g[a] * ops._const(area[a], zf[a])
+    return FaceField(*(zf[a] + g[a] * grid.face_area_like(a, zf[a])
                        for a in range(3)))
 
 
@@ -49,12 +48,10 @@ def reconstruct(flux: FaceField, grid: Grid):
 
     Per axis: cell vector component = mean of the two face fluxes / area.
     """
-    area = grid.face_area
-
     def _axis(fa, a):
         fm = ops._mv(fa, a)
         return ops._mvback(0.5 * (fm[1:] + fm[:-1]), a) \
-            / ops._const(area[a], fa)
+            / grid.face_area_like(a, fa)
 
     return torch.stack([_axis(flux[a], a) for a in range(3)])
 
@@ -99,14 +96,13 @@ def dev2_T_grad(U, beta_nu_eff, grid: Grid, vbc: _bc.FieldBC, t=0.0):
 def div_tensor(S, grid: Grid):
     """(div S)_j = (1/V) sum_f Sf_i S_ij, zeroGradient tensor extrapolation."""
     zg = _bc.zero_gradient()
-    area = grid.face_area
     comps = []
     for j in range(3):
         acc = torch.zeros(grid.shape, dtype=S.dtype, device=S.device)
         for i in range(3):
             fv = ops._axis_faces(S[i, j], i, grid, zg, None, "interp")
-            acc = acc + ops._face_diff(fv, i) * ops._const(area[i], acc)
-        comps.append(acc / ops._const(grid.cell_volume, acc))
+            acc = acc + ops._face_diff(fv, i) * grid.face_area_like(i, acc)
+        comps.append(acc / grid.cell_volume_like(acc))
     return torch.stack(comps)
 
 
@@ -120,7 +116,7 @@ class UbEqn(NamedTuple):
         # with cmptAv
         davg = (self.terms[0].diag + self.terms[1].diag
                 + self.terms[2].diag) / 3.0
-        return davg / ops._const(grid.cell_volume, davg)
+        return davg / grid.cell_volume_like(davg)
 
     def H(self, U, grid: Grid):
         return torch.stack([self.terms[j].H(U[j], grid) for j in range(3)])
@@ -161,8 +157,8 @@ def assemble_ub_eqn(fs: FluidState, grid: Grid, bcs: FluidBCs,
         div_phib = ops.div_flux(fs.phib, grid)
         cvm_scale = cfg.Cvm * alpha * beta
 
-    g_dir = torch.tensor(cfg.forcing.flow_direction, dtype=beta.dtype,
-                         device=beta.device)
+    g_dir = device_vector(tuple(cfg.forcing.flow_direction), beta.dtype,
+                          beta.device)
     avg_beta = ops.average_to_cells(betaf, grid, bcs.alpha)
     # RHS explicit: beta*alpha/rhob*(lift + Cvm*rhob*DDtUa) + channel
     # gradP below (the Cvm term is Python-gated: with Cvm == 0 it is
@@ -232,7 +228,7 @@ def piso(fs: FluidState, eqn: UbEqn, grid: Grid, bcs: FluidBCs,
     dt = cfg.dt
     beta = fs.beta
     rUbA = beta / eqn.A(grid)
-    g = torch.tensor(cfg.gravity, dtype=beta.dtype, device=beta.device)
+    g = device_vector(tuple(cfg.gravity), beta.dtype, beta.device)
     gflux = gravity_flux(grid, g, beta.dtype, beta.device)
 
     t = fs.time
@@ -278,7 +274,7 @@ def piso(fs: FluidState, eqn: UbEqn, grid: Grid, bcs: FluidBCs,
         for _ in range(cfg.piso.n_non_orth + 1):
             p_term = linop.laplacian(Dp, grid, bcs.p, t=t)
             b = p_term.rhs + ops.div_flux(phi, grid) \
-                * ops._const(grid.cell_volume, p_term.rhs)
+                * grid.cell_volume_like(p_term.rhs)
             if need_ref:
                 # singular (all-Neumann/periodic) system: solve in the
                 # consistent subspace and pin the constant afterwards
@@ -295,8 +291,7 @@ def piso(fs: FluidState, eqn: UbEqn, grid: Grid, bcs: FluidBCs,
 
         # flux correction: SfGradp = pEqn.flux()/Dp = A_f * snGrad(p)
         sgp = ops.sn_grad(p, grid, bcs.p, t=t)
-        area = grid.face_area
-        sf_gradp = FaceField(*(sgp[a] * ops._const(area[a], sgp[a])
+        sf_gradp = FaceField(*(sgp[a] * grid.face_area_like(a, sgp[a])
                                for a in range(3)))
         phib = FaceField(*(
             phib[a] - rUbAf[a] * sf_gradp[a] / cfg.rhob for a in range(3)))
@@ -362,10 +357,10 @@ def adjust_channel_forcing(fs: FluidState, rUbA, grid: Grid,
         # particle-imposed, so the increment lands on beta*Ub:
         # Ub += dir*rUA*gradPplus/beta.
         from sedifoam_tpu_torch.utils.accum import stable_dot, stable_sum
-        direction = torch.tensor(f.flow_direction, dtype=fs.p.dtype,
-                                 device=fs.p.device)
+        direction = device_vector(tuple(f.flow_direction), fs.p.dtype,
+                                  fs.p.device)
         beta = fs.beta
-        V = ops._const(grid.cell_volume, beta) + torch.zeros_like(beta)
+        V = grid.cell_volume_like(beta) + torch.zeros_like(beta)
         Udir = torch.einsum("c,cxyz->xyz", direction, fs.U)
         bV = beta * V
         # compensated global means: the forcing feedback integrates this

@@ -24,9 +24,8 @@ def make_preconditioner(grid: Grid, pbc: _bc.FieldBC, needs_ref: bool,
     prebuilt fastsolve.pressure_preconditioner for these BCs."""
     if solver is None:
         solver = fastsolve.pressure_preconditioner(grid, pbc, dtype, device)
-    inv_vol = 1.0 / grid.cell_volume  # scalar or (nx,ny,nz)
-    if not grid.uniform:
-        inv_vol = torch.as_tensor(inv_vol, dtype=dtype, device=device)
+    inv_vol = grid.geom("inv_cell_volume", lambda: 1.0 / grid.cell_volume,
+                        dtype, device)  # scalar or (nx,ny,nz)
 
     def precond(r, dp_scale):
         # operator A = L * Dp (negative definite, volume-integrated);

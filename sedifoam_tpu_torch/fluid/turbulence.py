@@ -14,7 +14,6 @@ BCs; it is built once per (grid, BCs, dtype, device) and kept.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -78,7 +77,9 @@ def correct(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig
         return fs
 
     # cubeRootVol LES delta: cellwise on graded grids
-    delta = ops._const(grid.cell_volume ** (1.0 / 3.0), fs.p)
+    delta = grid.geom("cbrt_cell_volume",
+                      lambda: grid.cell_volume ** (1.0 / 3.0), fs.p.dtype,
+                      fs.p.device)
 
     if t.model in ("Smagorinsky", "mySmagorinsky"):
         # local-equilibrium Smagorinsky: k_sgs = (2 Ck/Ce) delta^2 |symm(grad U)|^2,
@@ -148,15 +149,18 @@ def _wall_layers(grid: Grid, bcs: FluidBCs):
     return mask, yh
 
 
-@functools.lru_cache(maxsize=8)
 def _wall_tensors(grid: Grid, bcs: FluidBCs, dtype, device):
     """(mask, y) of _wall_layers on the device, or None without no-slip
-    walls; built once per (grid, BCs, dtype, device)."""
-    mask, yh = _wall_layers(grid, bcs)
-    if not mask.any():
-        return None
-    return (torch.as_tensor(mask, device=device),
-            torch.as_tensor(yh, dtype=dtype, device=device))
+    walls; built once per Grid object, BCs, dtype and device (Grid.memo)."""
+    def make():
+        mask, yh = _wall_layers(grid, bcs)
+        if not mask.any():
+            return None
+        return (torch.as_tensor(mask, device=device),
+                torch.as_tensor(yh, dtype=dtype, device=device))
+
+    return grid.memo(("wall_tensors", bcs.Ub, dtype, torch.device(device)),
+                     make)
 
 
 def _nut_wall(k, y, t, nub):

@@ -15,6 +15,11 @@ volumes/areas/distances/interp-weights are derived as numpy constants.
 The numpy geometry is a copy of ``sedifoam_tpu/grid.py``; the methods
 that make or read fields (``cell_centers``, ``locate``, ``flat_index``,
 ``zeros*``) work on tensors on an explicit device.
+
+The reference compiles a step into one program, so its numpy constants
+are baked in once. Eager PyTorch would copy them to the device at every
+stencil call (a synchronizing copy each); ``Grid.const`` keeps one tensor
+per (constant, dtype, device) on the Grid object instead.
 """
 
 from __future__ import annotations
@@ -101,6 +106,46 @@ class Grid:
     @property
     def uniform(self) -> bool:
         return self.faces is None
+
+    # ---- geometry constants as tensors ------------------------------------
+
+    def memo(self, key, make):
+        """`make()`, computed once per key and kept on this Grid object
+        (the cache is no dataclass field: it takes no part in equality or
+        hashing and dies with the object)."""
+        cache = self.__dict__.get("_memo")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_memo", cache)
+        if key not in cache:
+            cache[key] = make()
+        return cache[key]
+
+    def const(self, key, make, dtype, device):
+        """The numpy constant `make()` as a tensor of `dtype` on `device`,
+        copied there once per (key, dtype, device). Callers never write a
+        returned tensor in place."""
+        device = torch.device(device) if device is not None else None
+        return self.memo((key, dtype, device), lambda: torch.as_tensor(
+            make(), dtype=dtype, device=device))
+
+    def geom(self, key, make, dtype, device):
+        """A quantity made of cell volumes, face areas or widths, for
+        arithmetic with tensors: `make()` itself on uniform grids (a
+        scalar), else its array as the cached tensor of `const`."""
+        if self.uniform:
+            return make()
+        return self.const(key, make, dtype, device)
+
+    def cell_volume_like(self, like):
+        """cell_volume for arithmetic with the tensor `like`."""
+        return self.geom("cell_volume", lambda: self.cell_volume,
+                         like.dtype, like.device)
+
+    def face_area_like(self, a: int, like):
+        """face_area[a] for arithmetic with the tensor `like`."""
+        return self.geom(("face_area", a), lambda: self.face_area[a],
+                         like.dtype, like.device)
 
     # ---- per-axis 1-D geometry (numpy) ------------------------------------
 
@@ -208,19 +253,20 @@ class Grid:
         Clamps to the box (a particle outside the domain is assigned its
         nearest boundary cell; callers mask with in-domain checks).
         """
-        n = torch.tensor([self.nx, self.ny, self.nz], dtype=torch.int32,
-                         device=pos.device)
+        dev = pos.device
+        n = self.const("shape", lambda: np.array(self.shape), torch.int32,
+                       dev)
         if self.uniform:
-            lo = torch.tensor([self.x0, self.y0, self.z0], dtype=pos.dtype,
-                              device=pos.device)
-            d = torch.tensor([self.dx, self.dy, self.dz], dtype=pos.dtype,
-                             device=pos.device)
+            lo = self.const("origin", lambda: np.array(
+                [self.x0, self.y0, self.z0]), pos.dtype, dev)
+            d = self.const("spacing", lambda: np.array(
+                [self.dx, self.dy, self.dz]), pos.dtype, dev)
             idx = torch.floor((pos - lo) / d).to(torch.int32)
         else:
             cols = []
             for a in range(3):
-                f = torch.as_tensor(self.axis_faces(a), dtype=pos.dtype,
-                                    device=pos.device)
+                f = self.const(("axis_faces", a),
+                               lambda: self.axis_faces(a), pos.dtype, dev)
                 cols.append(torch.searchsorted(f, pos[:, a].contiguous(),
                                                right=True) - 1)
             idx = torch.stack(cols, dim=-1).to(torch.int32)

@@ -61,12 +61,12 @@ class LinTerm:
     # --- the two quantities PISO consumes -----------------------------
     def A(self, grid: Grid):
         """Diagonal per unit volume (OpenFOAM fvMatrix::A)."""
-        return self.diag / ops._const(grid.cell_volume, self.diag)
+        return self.diag / grid.cell_volume_like(self.diag)
 
     def H(self, x, grid: Grid):
         """(rhs - offdiag*x)/V (OpenFOAM fvMatrix::H)."""
         return (self.rhs - (self.apply(x) - self.diag * x)) \
-            / ops._const(grid.cell_volume, x)
+            / grid.cell_volume_like(x)
 
     def relax(self, x, alpha: float) -> "LinTerm":
         """fvMatrix::relax(alpha): D /= alpha; rhs += (D' - D) * x_current."""
@@ -103,7 +103,7 @@ def ddt(field_old, dt: float, grid: Grid, coeff=None, coeff_old=None) -> LinTerm
 
     diag = V*coeff/dt; rhs = V*coeff_old/dt*c_old.
     """
-    V = ops._const(grid.cell_volume, field_old)
+    V = grid.cell_volume_like(field_old)
     if coeff is None:
         coeff = torch.ones(grid.shape, dtype=field_old.dtype,
                            device=field_old.device)
@@ -122,14 +122,14 @@ def ddt(field_old, dt: float, grid: Grid, coeff=None, coeff_old=None) -> LinTerm
 
 def Sp(s, grid: Grid) -> LinTerm:
     """fvm::Sp(s, c): appears on LHS as +s*V*c."""
-    V = ops._const(grid.cell_volume, s)
+    V = grid.cell_volume_like(s)
     diag = s * V
     return LinTerm(diag, lambda x: diag * x, torch.zeros_like(diag))
 
 
 def source(src, grid: Grid) -> LinTerm:
     """Explicit source on the RHS (volume-integrated): ... == src."""
-    V = ops._const(grid.cell_volume, src)
+    V = grid.cell_volume_like(src)
     z = torch.zeros_like(src)
     return LinTerm(z, lambda x: torch.zeros_like(x), src * V)
 
@@ -268,14 +268,13 @@ def laplacian(gamma_face, grid: Grid, fbc: _bc.FieldBC,
             torch.full((grid.nx, grid.ny, grid.nz + 1), g, dtype=dtype,
                        device=device),
         )
-    area = grid.face_area
     hom = _homogeneous(fbc)
 
     def apply_fn(x):
         g = ops.sn_grad(x, grid, hom, phi)
         out = torch.zeros_like(x)
         for a in range(3):
-            F = gamma_face[a] * g[a] * ops._const(area[a], x)
+            F = gamma_face[a] * g[a] * grid.face_area_like(a, x)
             Fm = ops._mv(F, a)
             out = out + ops._mvback(Fm[1:] - Fm[:-1], a)
         return out
@@ -286,19 +285,22 @@ def laplacian(gamma_face, grid: Grid, fbc: _bc.FieldBC,
     for a in range(3):
         gm = ops._mv(gamma_face[a], a)
         if grid.uniform:
-            area_m = area[a]
+            area_m = grid.face_area[a]
             d = grid.spacing[a]
             inv_int = 1.0 / d
             inv_lo = inv_hi = 2.0 / d   # boundary delta = d/2
             inv_cyc = 1.0 / d
         else:
-            area_m = ops._const(np.moveaxis(area[a], a, 0), like)
-            dists = grid.axis_dists(a)
-            inv_int = ops._const((1.0 / dists[1:-1]).reshape(-1, 1, 1), like)
-            inv_lo = 1.0 / dists[0]
-            inv_hi = 1.0 / dists[-1]
-            w = grid.axis_widths(a)
-            inv_cyc = 1.0 / (0.5 * (w[0] + w[-1]))
+            area_m = grid.const(
+                ("face_area_moved", a),
+                lambda: np.moveaxis(grid.face_area[a], a, 0),
+                like.dtype, like.device)
+            inv_int = ops.inv_dist_internal(grid, a, like)
+            # boundary deltas are half the end cells' widths
+            _, _, d_lo, d_hi, d_cyc = ops._axis_geom(grid, a, like)
+            inv_lo = 1.0 / (0.5 * d_lo)
+            inv_hi = 1.0 / (0.5 * d_hi)
+            inv_cyc = 1.0 / d_cyc
         coef_int = gm[1:-1] * area_m * inv_int
         dm = torch.zeros_like(ops._mv(diag, a))
         rm = torch.zeros_like(dm)

@@ -29,12 +29,13 @@ SMALL = 1e-15
 ROOTVSMALL = 1e-18
 
 
-def _const(x, like):
-    """Cast a numpy geometry constant to the field's dtype and device
-    (graded grids carry np.float64 volume/area/distance arrays)."""
-    if isinstance(x, np.ndarray):
-        return torch.as_tensor(x, dtype=like.dtype, device=like.device)
-    return x
+def inv_dist_internal(grid: Grid, axis: int, like):
+    """(n-1, 1, 1) inverse center-to-center distances of the internal
+    faces of a graded axis, on `like`'s dtype and device (Grid.const)."""
+    return grid.const(
+        ("inv_dist_internal", axis),
+        lambda: (1.0 / grid.axis_dists(axis)[1:-1])[:, None, None],
+        like.dtype, like.device)
 
 
 def _mv(a, axis):
@@ -115,16 +116,22 @@ def _axis_geom(grid: Grid, axis: int, like):
     if grid.uniform:
         d = grid.spacing[axis]
         return 0.5, 1.0 / d, d, d, d
-    w = grid.axis_widths(axis)
-    dists = grid.axis_dists(axis)
-    wl = _const(grid.axis_weights(axis)[:, None, None], like)
-    inv_d = _const((1.0 / dists[1:-1])[:, None, None], like)
-    d_cyc = 0.5 * (w[0] + w[-1])
-    return wl, inv_d, float(w[0]), float(w[-1]), float(d_cyc)
+    wl = grid.const(("axis_weights", axis),
+                    lambda: grid.axis_weights(axis)[:, None, None],
+                    like.dtype, like.device)
+    inv_d = inv_dist_internal(grid, axis, like)
+
+    def ends():
+        w = grid.axis_widths(axis)
+        return float(w[0]), float(w[-1]), float(0.5 * (w[0] + w[-1]))
+
+    return (wl, inv_d) + grid.memo(("axis_ends", axis), ends)
 
 
 def _region_mask(patch, grid, like):
-    return _const(np.asarray(patch.region.mask(grid)), like)
+    return grid.const(("region_mask", patch.region),
+                      lambda: np.asarray(patch.region.mask(grid)),
+                      like.dtype, like.device)
 
 
 def _axis_faces(c, axis: int, grid: Grid, fbc: _bc.FieldBC,
@@ -188,21 +195,23 @@ def _face_diff(fa, axis):
 def div_flux(phi: FaceField, grid: Grid):
     """fvc::div(phi) for a face flux phi [m^3/s] -> cells [1/s]."""
     out = sum(_face_diff(phi[a], a) for a in range(3))
-    return out / _const(grid.cell_volume, out)
+    return out / grid.cell_volume_like(out)
 
 
 def div_flux_field(phi: FaceField, fv: FaceField, grid: Grid):
     """fvc::div(phi, psi) given precomputed face values of psi."""
     out = sum(_face_diff(phi[a] * fv[a], a) for a in range(3))
-    return out / _const(grid.cell_volume, out)
+    return out / grid.cell_volume_like(out)
 
 
 def grad(c, grid: Grid, fbc: _bc.FieldBC, phi: Optional[FaceField] = None,
          t=0.0):
     """Gauss-linear cell gradient of a scalar -> (3, nx, ny, nz)."""
     fv = face_interp(c, grid, fbc, phi, t)
-    area = grid.face_area
-    comps = [_face_diff(fv[a], a) * _const(area[a] / grid.cell_volume, c)
+    comps = [_face_diff(fv[a], a)
+             * grid.geom(("area_over_volume", a),
+                         lambda: grid.face_area[a] / grid.cell_volume,
+                         c.dtype, c.device)
              for a in range(3)]
     return torch.stack(comps)
 
@@ -230,10 +239,9 @@ def curl(v, grid: Grid, vbc: _bc.FieldBC, t=0.0):
 def flux_of(v, grid: Grid, vbc: _bc.FieldBC,
             phi: Optional[FaceField] = None, t=0.0) -> FaceField:
     """(interp(U) & Sf): volumetric flux of a vector field -> FaceField."""
-    area = grid.face_area
     return FaceField(*(
         _axis_faces(v[a], a, grid, vbc.component(a), phi, "interp", t)
-        * _const(area[a], v)
+        * grid.face_area_like(a, v)
         for a in range(3)
     ))
 

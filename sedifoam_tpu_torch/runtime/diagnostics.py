@@ -29,9 +29,7 @@ def compute(state, grid: Grid, cfg: FluidConfig, dem_cfg=None
     fs, ps = state.fluid, state.particles
     pol = getattr(cfg, "dtype_policy", "compensated")
     dtype, device = fs.alpha.dtype, fs.alpha.device
-    V = grid.cell_volume
-    if not grid.uniform:
-        V = torch.as_tensor(V, dtype=dtype, device=device)
+    V = grid.cell_volume_like(fs.alpha)
     dt = cfg.dt
 
     # Courant number: max over faces of |phi|/A * dt / d (facewise so
@@ -43,11 +41,13 @@ def compute(state, grid: Grid, cfg: FluidConfig, dem_cfg=None
         if grid.uniform:
             inv_ad = 1.0 / (area[a] * grid.spacing[a])
         else:
-            d = grid.axis_dists(a)
-            shape = [1, 1, 1]
-            shape[a] = len(d)
-            inv_ad = torch.as_tensor(1.0 / (area[a] * d.reshape(shape)),
-                                     dtype=dtype, device=device)
+            def make(a=a):
+                d = grid.axis_dists(a)
+                shape = [1, 1, 1]
+                shape[a] = len(d)
+                return 1.0 / (area[a] * d.reshape(shape))
+
+            inv_ad = grid.const(("inv_area_dist", a), make, dtype, device)
         co = torch.maximum(co, torch.max(torch.abs(fs.phib[a]) * inv_ad)
                            * dt)
         rel = torch.abs(fs.phia[a] - fs.phib[a])

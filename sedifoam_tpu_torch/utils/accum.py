@@ -8,14 +8,21 @@ the length and the magnitude spread of the data.
 `stable_sum` reduces in two stages:
 
 1. block partial sums (vectorized, error ~ eps * log2(block) within a
-   narrow magnitude band);
-2. a Neumaier two-sum scan over the ~n/block partials carrying an
-   explicit compensation term, so the sequential combine is exact to
-   one final rounding.
+   narrow magnitude band), as the reference;
+2. the ~n/block partials are summed in float64 and the total is rounded
+   once to the input's dtype.
 
-The scan is a Python loop over 0-d tensors, as the reference's
-`lax.scan` is sequential: about ten small kernels per partial, no host
-sync. f64 inputs and inputs of at most one block take a plain sum.
+The reference combines its partials with a Neumaier two-sum scan
+(`lax.scan`, compiled into one program) so that the sequential combine is
+exact to one final rounding. Eager PyTorch would run that scan as a
+Python loop of 0-d tensors: about ten launches a partial, 5,000 for the
+546,000 cells of a channel mesh. A float64 sum of float32 partials gives
+the same guarantee in two launches and no host sync: each partial is
+exact in float64, and the sum of m of them carries at most m * 2^-53 of
+their magnitudes, nine orders below float32's own rounding for any m a
+grid gives. (An error-free pairwise tree in float32 would need log2(m)
+levels of two-sums and a compensation array for the same result.) f64
+inputs and inputs of at most one block take a plain sum.
 
 The policy knob (`FluidConfig.dtype_policy` / the `policy=` argument):
   "compensated" (default)  — the scheme above on the native dtype
@@ -49,15 +56,7 @@ def stable_sum(x, policy: str = "compensated"):
         x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)])
     partials = torch.sum(x.reshape(-1, _BLOCK), dim=1)
 
-    s = torch.zeros((), dtype=x.dtype, device=x.device)
-    c = torch.zeros((), dtype=x.dtype, device=x.device)
-    for v in partials.unbind():
-        t = s + v
-        # Neumaier: recover the rounding error of s+v exactly
-        c = c + torch.where(torch.abs(s) >= torch.abs(v),
-                            (s - t) + v, (v - t) + s)
-        s = t
-    return s + c
+    return torch.sum(partials, dtype=torch.float64).to(x.dtype)
 
 
 def stable_dot(a, b, policy: str = "compensated"):

@@ -393,3 +393,71 @@ def test_grid_locate_and_fields(graded):
     _close(gj.cell_centers(), gt.cell_centers())
     assert tuple(gt.zeros_faces().y.shape) == tuple(gj.zeros_faces().y.shape)
     assert gt.zeros_vec(torch.float32).dtype == torch.float32
+
+
+def test_graded_constants_are_copied_once():
+    """A graded grid's numpy geometry goes to the device once: a second
+    round of stencil calls makes no torch.as_tensor call on numpy input
+    (on a CUDA device each was a synchronizing host-to-device copy),
+    gives the same bits, leaves the cached tensors as they were, and the
+    cache dies with its Grid."""
+    import gc
+    import weakref
+
+    _, g = _grids(True)
+    s, v = _bcs(tbc)
+    rng = np.random.RandomState(3)
+    c = torch.as_tensor(rng.randn(*SHAPE))
+    u = torch.as_tensor(rng.randn(3, *SHAPE))
+    _, phi = _ff_pair(rng, SHAPE)
+    pos = torch.as_tensor(rng.rand(7, 3) * 4e-3)
+    # the solver is built once per run (CoupledStep holds it)
+    solver = tfs.pressure_preconditioner(g, s, torch.float64, "cpu")
+
+    def round_of_calls():
+        lap = tlin.laplacian(tops.face_interp(c * c + 1.0, g, s), g, s,
+                             phi=phi)
+        pre = tpp.make_preconditioner(g, s, False, 0, torch.float64, "cpu",
+                                      solver=solver)
+        return (tops.face_interp(c, g, s, phi), tops.sn_grad(c, g, s, phi),
+                tops.grad(c, g, s), tops.div_flux(phi, g),
+                tops.flux_of(u, g, v, phi), lap.apply(c), lap.diag,
+                tlin.ddt(c, 1e-3, g).rhs, tlin.Sp(c, g).diag,
+                tlin.source(c, g).rhs, tpiso.reconstruct(phi, g),
+                tpiso.div_tensor(torch.stack([u, u, u]), g),
+                tpiso.gravity_flux(g, (0.0, -9.81, 0.0)),
+                g.locate(pos), pre(c, 1.0))
+
+    copies = []
+    real = torch.as_tensor
+
+    def counting(data, *a, **kw):
+        if isinstance(data, np.ndarray):
+            copies.append(data.shape)
+        return real(data, *a, **kw)
+
+    torch.as_tensor = counting
+    try:
+        first = round_of_calls()
+        n_first = len(copies)
+        kept = {k: t.clone() for k, t in g._memo.items()
+                if isinstance(t, torch.Tensor)}
+        second = round_of_calls()
+    finally:
+        torch.as_tensor = real
+    assert n_first > 0 and len(kept) == n_first
+    assert len(copies) == n_first, copies[n_first:]
+    for a, b in zip(first, second):
+        for x, y in zip(a, b) if isinstance(a, tuple) else ((a, b),):
+            assert torch.equal(x, y)
+    for k, t in kept.items():
+        assert torch.equal(g._memo[k], t), k
+    # another dtype is another entry; the cache is no field of the Grid
+    tops.div_flux(tgrid.FaceField(*(f.float() for f in phi)), g)
+    assert len(g._memo) > len(kept) + 3
+    _, g2 = _grids(True)
+    assert g2 == g and hash(g2) == hash(g) and "_memo" not in g2.__dict__
+    ref = weakref.ref(g._memo[next(iter(kept))])
+    del g, first, second, kept, a, b, x, y, t
+    gc.collect()
+    assert ref() is None

@@ -2,9 +2,24 @@
 sedifoam_tpu (tests/test_torch_*.py)."""
 
 import numpy as np
+import pytest
 import torch
 
 from sedifoam_tpu_torch import bridge
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_threads():
+    """Two PyTorch threads while a module's tests run. The test files run
+    in several worker processes at once, and PyTorch's default of a
+    thread per core in each of them oversubscribes the machine: the
+    barriers of its many small parallel regions then wait for
+    descheduled threads, and a step of seconds takes minutes. Import
+    this into a test module to use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def rel_err(ref, got):
