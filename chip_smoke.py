@@ -26,14 +26,29 @@ which passes or exits nonzero:
    the share of it, the empty kernel's time (the launch floor) and host
    microseconds per call;
 4. main path: the bench entry point's own loop
-   (sedifoam_tpu_torch.bench.run: initialize, 1 warm-up and 10 timed
-   coupled steps ending in a device-to-host fetch, the neighbor audit;
-   particle-substeps/s), a per-phase split over 3 more steps; the state
+   (sedifoam_tpu_torch.bench.run: initialize, 1 warm-up step that
+   captures the coupled step as a CUDA graph, 10 timed replays ending in
+   a device-to-host fetch, the neighbor audit; particle-substeps/s), a
+   per-phase split over 3 more eager steps; no host sync inside a replay
+   (torch's sync debug mode); the state
    must be finite, nbr_dropped 0, alpha in [0, max_possible_alpha] up to
    f32 round-off of the smoothing transform (1e-6), the
    kernel's launch count must equal the setups + substeps run, and one
    coupled step through the kernel must agree with one through the plain
    chain (<= 1e-3 of each field's scale, f32);
+4b. graph: the coupled step captured once and replayed (solver.
+   GraphedStep, the step of Simulation on the card) against the eager
+   step (CoupledStep.forward, the oracle) from the same state, GRAPH_STEPS
+   steps each, on the bench case, the channel (140x65x60), the clumps
+   (72x50x36, 600 clumps) and the injection column with its active window
+   (a capture per window): the states equal bit for bit (else within
+   GRAPH_TOL of scale, the worst field printed), the same PCG and
+   BiCGStab solves and iterations, no host sync inside a replay (the
+   visits' own reads aside), unrelated allocations between the replays;
+   capture seconds, ms per step both ways, the kernel's launches inside
+   the graphs, and but for the injection column the device's busy share,
+   the kernel's device time inside a replay and the kernels that take
+   most device time (torch.profiler);
 5. runner: the bench case through runtime.runner.Simulation, 6 steps
    with 4 probes, a diagnostics log every step and one write(); a
    checkpoint after step 3 resumed by a fresh Simulation and run to
@@ -107,15 +122,19 @@ which passes or exits nonzero:
    bounds), `transporting` and `mpm_band` are printed as not evaluated;
    nbr_dropped 0, launches = setup + substeps;
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
-   table (launches summed over the main path, runner, inject, case,
-   clumps, extras, bench and validate, with the N and K it ran at;
-   device time, bound, host time and floor per shape), and last
-   {"ok": true, "device": {...}}.
+   table (launches summed over the main path, graph, runner, inject,
+   case, clumps, extras, bench and validate, with the N and K it ran at,
+   launches inside replayed graphs counted on the device; device time,
+   bound, host time and floor per shape; its device time inside a
+   replay), and last {"ok": true, "device": {...}}.
+
+Every phase that steps through Simulation or the bench entry point
+steps through the captured graph; launches counted for a path include
+each capture's eager warm-up step.
 
 Imports nothing of JAX. Needs one card; builds into build/kernels/.
 """
 
-import collections
 import dataclasses
 import json
 import os
@@ -151,12 +170,24 @@ SORT_TOL = {"pos": 1e-5, "vel": 2e-3, "omega": 2e-2, "fluid": 1e-4}
 VALIDATE_IRREGULAR_STEPS = 200     # of 6,000
 VALIDATE_BEDLOAD_SETTLE = 50       # of 3,000
 VALIDATE_BEDLOAD_STEPS = 250       # of 30,000
+GRAPH_STEPS = 10          # replays held against as many eager steps
+GRAPH_TOL = 1e-6          # replay vs eager, of scale, where not bit for bit
+GRAPH_PROFILE = 5         # replays in the profile of a graphed step
+GRAPH_TOP = 8             # kernels listed by their device time per replay
 PROFILE_REPS = 100        # launches per device-time measurement
 PROFILE_LEAD = 100        # launches before them that a profile may lose
 HOST_CALLS = 1000         # wrapper calls per host-time measurement
+# the text of torch's sync debug mode warning (its first use also warns
+# that the mode is a prototype: that notice is no sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}   # outside tensor cores
 FLOPS_PER_CONTACT = 150   # geometry and contact law of one touching slot
+
+
+# what the graphed paths report for the kernels line: launches inside
+# replayed graphs, per path, and the kernel's device time in a replay
+GRAPHS = {}
 
 
 def fail(msg):
@@ -207,8 +238,9 @@ def fields_that_differ(a, b):
     return out
 
 
-def count_syncs(fn):
-    """Host syncs made by fn(), as torch's sync debug mode reports them."""
+def count_syncs(fn, where=None):
+    """Host syncs made by fn(), as torch's sync debug mode reports them;
+    `where` (a list) receives the file:line of each."""
     import torch
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
@@ -217,7 +249,34 @@ def count_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in seen)
+    syncs = [w for w in seen if SYNC_WARNING in str(w.message)]
+    if where is not None:
+        where += [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+                  for w in syncs]
+    return len(syncs)
+
+
+def launch_snapshot():
+    """The kernel's launch counts: eager, and its device counters inside
+    graphs (copies). launch_restore puts them back, so launches made to
+    compare or time a kernel do not count."""
+    from sedifoam_tpu_torch.dem import fused
+    return (fused.LAUNCHES, fused.LAUNCH_SIZES.copy(),
+            {k: v.clone() for k, v in fused.GRAPH_LAUNCHES.items()})
+
+
+def launch_restore(snap):
+    from sedifoam_tpu_torch.dem import fused
+    fused.LAUNCHES, fused.LAUNCH_SIZES = snap[0], snap[1].copy()
+    for k, v in fused.GRAPH_LAUNCHES.items():
+        v.copy_(snap[2][k]) if k in snap[2] else v.zero_()
+
+
+def captures():
+    """Captures of the coupled step so far; each capture's eager warm-up
+    step launches the kernel once a substep."""
+    from sedifoam_tpu_torch.solver import GraphedStep
+    return GraphedStep.CAPTURES
 
 
 def compare_states(a, b):
@@ -386,7 +445,7 @@ def measure_chain(label, p, cfg_dem, floor):
     from sedifoam_tpu_torch.dem import fused
     walls = cfg_dem.walls if fused.walls_fusible(cfg_dem.walls) else ()
     plen = cfg_dem.periodic_len()
-    launches, sizes = fused.LAUNCHES, fused.LAUNCH_SIZES.copy()
+    counted = launch_snapshot()
     dev, how, names = device_us(chain_launcher(p, cfg_dem))
     q = p._replace(shear=p.shear.clone(), wall_shear=p.wall_shear.clone())
     args = (cfg_dem.pair, cfg_dem.dt, q.nbr_idx, True, plen, walls)
@@ -395,7 +454,7 @@ def measure_chain(label, p, cfg_dem, floor):
         fused.contact_chain(q, *args)
     host = (time.perf_counter() - t0) / HOST_CALLS * 1e6
     torch.cuda.synchronize()
-    fused.LAUNCHES, fused.LAUNCH_SIZES = launches, sizes
+    launch_restore(counted)
     out = {"shape": label, "N": p.n_capacity, "K": p.nbr_idx.shape[0],
            "W": len(walls), "dtype": str(p.pos.dtype).split(".")[-1],
            "slot_warps": fused._library().contact_chain_slot_warps(
@@ -521,7 +580,7 @@ def compare_chain(label, p, cfg_dem, shearupdate, tol, timing=False,
     pb = tree_map(torch.clone, p)
     pc = tree_map(torch.clone, p)
     ref = fused.contact_chain_reference(pa, *args)
-    launches = fused.LAUNCHES
+    counted = launch_snapshot()
     got = fused._launch(pb, *args)
     again = fused._launch(pc, *args)
     torch.cuda.synchronize()
@@ -560,7 +619,7 @@ def compare_chain(label, p, cfg_dem, shearupdate, tol, timing=False,
             f"W={len(walls)}: kernel {out['ms']:.4f} ms, plain "
             f"{out['plain_ms']:.4f} ms (CUDA events around the Python loop "
             "of calls: host-bound, the wrapper included)")
-    fused.LAUNCHES = launches          # comparison launches do not count
+    launch_restore(counted)          # comparison launches do not count
     return out
 
 
@@ -710,11 +769,15 @@ def phase_main_path(dev):
     from sedifoam_tpu_torch.solver import CoupledStep, need_ddtu
     n = bench_case.FULL["n_particles"]
 
-    # the bench entry point's own loop: initialize, 1 warm-up, its 10
-    # timed steps ending in a device-to-host fetch, the neighbor audit
-    fused.LAUNCHES = 0
+    # the bench entry point's own loop: initialize, 1 warm-up (the
+    # capture of the step's graph), its 10 timed replays ending in a
+    # device-to-host fetch, the neighbor audit
+    fused.reset_launches()
+    caps = captures()
     run = bench.run(device=dev)
-    cfg, step, state = run.cfg, run.step, run.state
+    graphed, cfg = run.step, run.cfg
+    step = graphed.step                       # the eager CoupledStep
+    state = tree_map(torch.clone, run.state)  # not the graph's buffers
     sub = cfg.cloud.sub_steps
     wall, rate = run.walls[0], run.rates[0]
     say(f"main path: {run.n_timed} coupled steps in {wall:.4f} s = "
@@ -746,17 +809,25 @@ def phase_main_path(dev):
         f"{split[0]:.3f} ms, evolve {split[1]:.3f} ms, lift_drag_coeffs "
         f"{split[2]:.3f} ms")
 
-    launches = fused.LAUNCHES
+    launches = fused.launches()
+    in_graphs = fused.graph_launches()
+    caps = captures() - caps
     n_steps = 1 + run.n_timed + N_SPLIT
 
     # host syncs of one coupled step, as torch's sync debug mode reports
     # them (outside the counted and timed runs: same path, same count)
-    n_sync = count_syncs(lambda: step(tree_map(torch.clone, state)))
-    say(f"host syncs in one coupled step: {n_sync} (torch sync debug mode;"
-        f" {cfg.cloud.sub_steps} Verlet rebuild tests + PCG stop tests)")
-    expected = 1 + n_steps * cfg.cloud.sub_cycles * sub
-    say(f"contact_chain launches: {launches} (1 setup + {n_steps} steps x "
-        f"{sub} substeps = {expected})")
+    n_sync = count_syncs(lambda: graphed(tree_map(torch.clone, state)))
+    n_eager = count_syncs(lambda: step(tree_map(torch.clone, state)))
+    say(f"host syncs in one coupled step: {n_sync} in a replay of its graph"
+        f", {n_eager} in the eager step (torch sync debug mode; "
+        f"{cfg.cloud.sub_steps} Verlet rebuild tests + PCG stop tests)")
+    if n_sync:
+        fail(f"a replayed step made {n_sync} host syncs")
+    GRAPHS["main_path_launches_in_graph"] = in_graphs
+    expected = 1 + (n_steps + caps) * cfg.cloud.sub_cycles * sub
+    say(f"contact_chain launches: {launches} (1 setup + ({n_steps} steps + "
+        f"{caps} capture warm-up) x {sub} substeps = {expected}; "
+        f"{in_graphs} of them inside the replayed graph)")
     if launches != expected:
         fail(f"kernel launched {launches} times, expected {expected}")
 
@@ -779,7 +850,7 @@ def phase_main_path(dev):
     plain_cfg = dataclasses.replace(
         cfg, dem=dataclasses.replace(cfg.dem, fused_chain=False))
     plain = CoupledStep(plain_cfg, dtype=torch.float32, device=dev)
-    a = step(tree_map(torch.clone, state))
+    a = tree_map(torch.clone, graphed(tree_map(torch.clone, state)))
     b = plain(tree_map(torch.clone, state))
     worst, where = 0.0, ""
     pairs = list(zip(tree_leaves(a), tree_leaves(b)))
@@ -799,6 +870,202 @@ def phase_main_path(dev):
         fail("the main path through the kernel disagrees with the plain "
              "chain")
     return launches
+
+
+class CountedAdvance:
+    """A Simulation's graphed step (solver.GraphedStep), wrapped: the host
+    syncs made inside each call (torch's sync debug mode), apart for the
+    calls that captured and those that only replayed; before each call,
+    unrelated allocations from the ordinary pool filled with NaN, which a
+    graph that kept memory outside its pools would read or overwrite."""
+
+    def __init__(self, graphed, dev):
+        self.graphed, self.dev = graphed, dev
+        self.replays = self.replay_syncs = self.capture_syncs = 0
+        self.junk, self.where = [], []
+
+    def __call__(self, state):
+        import torch
+        self.junk = [torch.full((1 << 20,), float("nan"), device=self.dev)
+                     for _ in range(4)] + self.junk[:4]
+        caps, out, where = self.graphed.captures, [], []
+        n = count_syncs(lambda: out.append(self.graphed(state)), where)
+        if self.graphed.captures != caps:
+            self.capture_syncs += n
+        else:
+            self.replays += 1
+            self.replay_syncs += n
+            self.where += where
+        return out[0]
+
+
+def profile_replays(graphed, state, reps):
+    """(device busy share, contact_chain microseconds per launch, kernels
+    seen, the GRAPH_TOP kernels by device time with their microseconds
+    per replay) over `reps` replays of a captured step, from
+    torch.profiler: the kernels' summed time over the span from the first
+    kernel's start to the last one's end (a profile may lose its first
+    records: what it saw is counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    graphed(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            state = graphed(state)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not spans:
+        return None, None, 0, []
+    busy = sum(b - a for a, b, _ in spans)
+    span = max(b for _, b, _ in spans) - min(a for a, _, _ in spans)
+    chain = [b - a for a, b, n in spans if "chain_kernel" in n]
+    by_name = {}
+    for a, b, n in spans:
+        by_name[n[:60]] = by_name.get(n[:60], 0.0) + (b - a) / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:GRAPH_TOP]
+    return busy / span, (sum(chain) / len(chain) if chain else None), \
+        len(spans), [(n, round(us, 1)) for n, us in top]
+
+
+def phase_graph(dev):
+    """The coupled step captured as one CUDA graph and replayed, held
+    against the eager step (CoupledStep.forward) on the bench case, the
+    channel, the clumps and the windowed injection column: the same
+    states (bit for bit, else within GRAPH_TOL of scale), the same PCG and
+    BiCGStab iteration counts, no host sync inside a replay."""
+    import torch
+    from sedifoam_tpu_torch import bench_case, cases, linsolve
+    from sedifoam_tpu_torch.dem import fused
+    from sedifoam_tpu_torch.io.case import load_case
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import initialize
+
+    def bench():
+        cfg = bench_case.build_config(**bench_case.FULL)
+        fluid, particles = bench_case.build_state(
+            cfg, bench_case.FULL["n_particles"], torch.float32, dev)
+        return cfg, fluid, particles
+
+    def channel():
+        with tempfile.TemporaryDirectory() as tmp:
+            case = cases.write_channel_case(os.path.join(tmp, "channel"),
+                                            **cases.CHANNEL_FULL,
+                                            overlap=CASE_OVERLAP)
+            cfg, fluid, particles, _ = load_case(
+                case, backend="binned", dtype=torch.float32, capacity=8192,
+                device=dev)
+        return dataclasses.replace(cfg, cloud=dataclasses.replace(
+            cfg.cloud, semi_implicit_drag=True)), fluid, particles
+
+    def clumps():
+        return load_clumps(dev, cases.IRREGULAR_FULL["counts"])[:3]
+
+    def inject():
+        return cases.inject_case(**cases.INJECT_FULL, dtype=torch.float32,
+                                 device=dev)
+
+    out = []
+    for label, build in (("bench", bench), ("channel", channel),
+                         ("clumps", clumps), ("inject", inject)):
+        cfg, fluid, particles = build()
+        state0 = initialize(fluid, particles, cfg)
+        eager = Simulation(cfg, state0, device=dev)
+        eager.advance = eager.step_fn               # the oracle
+        graph = Simulation(cfg, state0, device=dev)
+        counted = CountedAdvance(graph.advance, dev)
+        graph.advance = counted
+        sizes0 = fused.launch_sizes()
+        t0 = time.perf_counter()
+        run_steps(graph, 1)                          # with the capture
+        t_first = time.perf_counter() - t0
+        run_steps(eager, 1)
+        torch.cuda.synchronize()
+        linsolve.reset_stats()
+        t0 = time.perf_counter()
+        run_steps(eager, 1 + GRAPH_STEPS)
+        torch.cuda.synchronize()
+        ms_eager = (time.perf_counter() - t0) / GRAPH_STEPS * 1e3
+        stats_eager = dict(linsolve.STATS)
+        linsolve.reset_stats()
+        in_graphs, captured = fused.graph_launches(), dict(fused.CAPTURED)
+        cap_s0 = counted.graphed.capture_seconds
+        t0 = time.perf_counter()
+        run_steps(graph, 1 + GRAPH_STEPS)
+        torch.cuda.synchronize()
+        # a window that grew captured anew in the run: its time is set-up
+        recaptured = counted.graphed.capture_seconds - cap_s0
+        ms_graph = (time.perf_counter() - t0 - recaptured) / GRAPH_STEPS * 1e3
+        stats_graph = dict(linsolve.STATS)
+        in_graphs = fused.graph_launches() - in_graphs
+        captured = sum(fused.CAPTURED.values()) - sum(captured.values())
+        g = counted.graphed
+        differ = fields_that_differ(eager.state, graph.state)
+        worst, where = compare_states(eager.state, graph.state) \
+            if differ else (0.0, "")
+        busy = chain_us = None
+        top, seen = [], 0
+        if label != "inject":
+            busy, chain_us, seen, top = profile_replays(
+                g, tree_map(torch.clone, graph.state), GRAPH_PROFILE)
+            GRAPHS[f"{label}_busy_share_in_replay"] = busy
+        if label == "bench":
+            GRAPHS["chain_ms_in_replay"] = None if chain_us is None \
+                else chain_us * 1e-3
+        res = {"case": label, "captures": g.captures,
+               "capture_s": g.capture_seconds,
+               "first_step_s": t_first, "recapture_s": recaptured,
+               "ms_eager": ms_eager,
+               "ms_graph": ms_graph, "replays": counted.replays,
+               "replay_syncs": counted.replay_syncs,
+               "capture_syncs": counted.capture_syncs,
+               "nodes": g.graph.nodes if g.graph else None,
+               "iterations_eager": stats_eager,
+               "iterations_graph": stats_graph,
+               "kernel_launches_in_graphs": in_graphs,
+               "kernel_launches_captured": captured,
+               "bitwise": not differ, "worst": worst, "worst_field": where,
+               "busy_share": busy, "chain_us_in_replay": chain_us,
+               "top_kernels_us_per_replay": top}
+        cap_s = g.capture_seconds
+        say(f"graph [{label}]: {g.captures} capture(s) in {cap_s:.2f} s "
+            f"({res['nodes']} conditional nodes in the last), first "
+            f"step {t_first:.2f} s; {GRAPH_STEPS} steps {ms_eager:.3f} "
+            f"ms/step eager, {ms_graph:.3f} ms/step replayed (host clock; "
+            f"{recaptured:.2f} s of captures in the run taken out); "
+            f"host syncs inside {counted.replays} replays: "
+            f"{counted.replay_syncs} (in the captures' warm-ups: "
+            f"{counted.capture_syncs}); PCG/BiCGStab [solves, iterations] "
+            f"eager {stats_eager}, replayed {stats_graph}; replay vs eager "
+            + ("equal bit for bit" if not differ else
+               f"differ in {differ}, worst {worst:.3e} ({where}; tol "
+               f"{GRAPH_TOL:.0e})")
+            + f"; contact_chain launches inside the graphs {in_graphs} "
+            f"({captured} captured)"
+            + (f"; device busy {100 * busy:.1f}% of the replays' span "
+               f"(torch.profiler, {GRAPH_PROFILE} replays, {seen} kernels "
+               f"seen), the kernel {chain_us:.2f} us a launch inside a "
+               f"replay; most device time per replay: {top}"
+               if busy is not None and chain_us is not None else ""))
+        if counted.replay_syncs:
+            fail(f"graph [{label}]: {counted.replay_syncs} host syncs inside "
+                 f"the replays, at {counted.where}")
+        if stats_eager != stats_graph:
+            fail(f"graph [{label}]: solver iterations differ")
+        if differ and worst > GRAPH_TOL:
+            fail(f"graph [{label}]: the replay disagrees with the eager step")
+        if label == "inject" and g.captures < 2:
+            fail("graph [inject]: the window never grew: one capture")
+        sizes = fused.launch_sizes() - sizes0
+        K = particles.nbr_idx.shape[0]
+        out += [{"N": n, "K": K, "launches": c} for n, c in sizes.items()]
+        res["launches"] = sum(sizes.values())
+        GRAPHS[f"{label}_launches_in_graphs"] = in_graphs
+        say("graph [" + label + "] " + json.dumps(res))
+        del eager, graph, counted, g
+    return out
 
 
 def bench_probes(cfg):
@@ -841,8 +1108,8 @@ def phase_runner(dev):
     fluid, particles = bench_case.build_state(cfg, n, torch.float32, dev)
     probes = bench_probes(cfg)
 
-    fused.LAUNCHES = 0
-    fused.LAUNCH_SIZES.clear()
+    fused.reset_launches()
+    caps = captures()
     state0 = CoupledStep(cfg, torch.float32, dev).initialize(fluid,
                                                              particles)
     setups = 1
@@ -863,8 +1130,9 @@ def phase_runner(dev):
             fail(f"resumed at step {int(sim2.state.fluid.step)}, not {half}")
         run_steps(sim2, RUNNER_STEPS, log_every=1)
     torch.cuda.synchronize()
-    launches = fused.LAUNCHES
-    expected = setups + (RUNNER_STEPS + RUNNER_STEPS - half) * \
+    launches = fused.launches()
+    caps = captures() - caps
+    expected = setups + (RUNNER_STEPS + RUNNER_STEPS - half + caps) * \
         cfg.cloud.sub_cycles * cfg.cloud.sub_steps
     say(f"runner: {RUNNER_STEPS} steps with {len(probes)} probes, a log "
         f"every step; steps {half + 1}-{RUNNER_STEPS} in {wall:.4f} s "
@@ -888,8 +1156,8 @@ def phase_runner(dev):
         if int(s.particles.nbr_dropped) != 0:
             fail(f"{label}: neighbor audit dropped in-ring partners")
     say(f"contact_chain launches: {launches} ({setups} setup + "
-        f"{2 * RUNNER_STEPS - half} steps x {cfg.cloud.sub_steps} "
-        f"substeps = {expected})")
+        f"({2 * RUNNER_STEPS - half} steps + {caps} capture warm-ups) x "
+        f"{cfg.cloud.sub_steps} substeps = {expected})")
     if launches != expected:
         fail(f"kernel launched {launches} times, expected {expected}")
     split = sim.timing_split(n=2)          # launches after the count
@@ -918,8 +1186,8 @@ def phase_inject(dev):
     cap = cases.INJECT_FULL["capacity"]
     sub = cfg.cloud.sub_cycles * cfg.cloud.sub_steps
 
-    fused.LAUNCHES = 0
-    fused.LAUNCH_SIZES.clear()
+    fused.reset_launches()
+    caps = captures()
     syncs0 = inject.SYNCS
     state0 = CoupledStep(cfg, torch.float32, dev).initialize(fluid,
                                                              particles)
@@ -939,8 +1207,9 @@ def phase_inject(dev):
     run_steps(full, INJECT_STEPS)
     t_full = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = fused.LAUNCHES
-    by_n = dict(sorted(fused.LAUNCH_SIZES.items()))
+    launches = fused.launches()
+    by_n = dict(sorted(fused.launch_sizes().items()))
+    caps = captures() - caps
     inject_syncs = inject.SYNCS - syncs0
 
     windows = [w for i, w in enumerate(sizes) if i == 0 or w != sizes[i - 1]]
@@ -962,10 +1231,14 @@ def phase_inject(dev):
         fail(f"the window grew {grows} times (need >= 2)")
     if len(by_n) < 3:
         fail(f"the kernel ran at {len(by_n)} distinct N (need >= 3)")
-    expected = 1 + 2 * (n_adds + INJECT_STEPS * sub)
+    # a capture's warm-up step runs every substep and, taken or not, the
+    # setup after an add once a subcycle
+    expected = 1 + 2 * (n_adds + INJECT_STEPS * sub) + \
+        caps * (sub + cfg.cloud.sub_cycles)
     say(f"contact_chain launches: {launches} (1 setup + 2 runs x "
         f"({n_adds} add setups + {INJECT_STEPS} steps x {sub} substeps) "
-        f"= {expected})")
+        f"+ {caps} captures (one per window) x ({sub} substeps + "
+        f"{cfg.cloud.sub_cycles} setups) = {expected})")
     if launches != expected:
         fail(f"kernel launched {launches} times, expected {expected}")
 
@@ -985,7 +1258,7 @@ def phase_inject(dev):
         check_finite(s, label)
 
     # host syncs of two more steps (a plain one, then an add): inside the
-    # coupled steps alone, and through the runner (which adds the loop's
+    # eager coupled steps, and through the runner (its replays, the loop's
     # time test and the window check per visit)
     st = tree_map(torch.clone, win.state)
     in_step = count_syncs(lambda: win.step_fn(win.step_fn(st)))
@@ -993,9 +1266,10 @@ def phase_inject(dev):
         lambda: win.run((INJECT_STEPS + 1.5) * cfg.fluid.dt))
     say(f"host syncs with injection, per step (mean of a plain step and "
         f"an add step; torch sync debug mode): {in_step / 2:.1f} in the "
-        f"coupled step, {per_visit / 2:.1f} per runner visit; "
-        f"inject.maybe_add_delete read {inject_syncs} flags in "
-        f"{2 * INJECT_STEPS} steps")
+        f"eager coupled step, {per_visit / 2:.1f} per runner visit (the "
+        f"replay and the visit's reads); injection decisions read on the "
+        f"host: {inject_syncs} in {2 * INJECT_STEPS} steps (the capture "
+        f"warm-ups' eager steps)")
     return launches, by_n
 
 
@@ -1007,7 +1281,7 @@ def phase_dense(dev):
     from sedifoam_tpu_torch.runtime.runner import Simulation
     from sedifoam_tpu_torch.solver import CoupledStep
     cfg, fluid, particles = cases.xiaocase3(torch.float64, dev)
-    launches = fused.LAUNCHES
+    launches = fused.launches()
     state = CoupledStep(cfg, torch.float64, dev).initialize(fluid,
                                                             particles)
     sim = Simulation(cfg, state, device=dev)
@@ -1025,7 +1299,7 @@ def phase_dense(dev):
         fail("xiaocase3 p or Ub is not finite")
     if dy >= 5e-4:
         fail(f"xiaocase3 particle moved {dy} m")
-    if fused.LAUNCHES != launches:
+    if fused.launches() != launches:
         fail("the dense backend launched the binned kernel")
 
 
@@ -1084,8 +1358,8 @@ def phase_case(dev):
 
     settle_cfg = dataclasses.replace(cfg, fluid=dataclasses.replace(
         cfg.fluid, forcing=ChannelForcing(mode="none")))
-    fused.LAUNCHES = 0
-    fused.LAUNCH_SIZES.clear()
+    fused.reset_launches()
+    caps = captures()
     state0 = CoupledStep(settle_cfg, torch.float32, dev).initialize(
         fluid, particles)
     frozen = state0.particles.ptype == 2
@@ -1096,7 +1370,7 @@ def phase_case(dev):
     # the kernel and the whole step against their plain versions while
     # the pressed layers are in contact (launches made to compare do not
     # count)
-    launches, sizes = fused.LAUNCHES, fused.LAUNCH_SIZES.copy()
+    counted = launch_snapshot()
     p = settle.state.particles
     res = compare_chain("case f32", p, cfg.dem, True, 1e-5, timing=True,
                         may_be_zero=("wall_shear",))
@@ -1113,30 +1387,37 @@ def phase_case(dev):
     if worst > 1e-3:
         fail("the case path through the kernel disagrees with the plain "
              "chain")
-    fused.LAUNCHES, fused.LAUNCH_SIZES = launches, sizes
+    launch_restore(counted)
     run_steps(settle, CASE_SETTLE)
     torch.cuda.synchronize()
     t_settle = time.perf_counter() - t0
 
     sim = Simulation(cfg, settle.state, device=dev)
     gp_series = []                 # device scalars: read after the run
+    record = lambda m: gp_series.append(                      # noqa: E731
+        m.state.fluid.grad_p_value.clone())
+    t0 = time.perf_counter()
+    run_steps(sim, CASE_SETTLE + 1, on_sample=record)   # with the capture
+    t_capture = time.perf_counter() - t0
     linsolve.reset_stats()
     t0 = time.perf_counter()
-    run_steps(sim, CASE_SETTLE + CASE_STEPS,
-              on_sample=lambda m: gp_series.append(
-                  m.state.fluid.grad_p_value.clone()))
+    run_steps(sim, CASE_SETTLE + CASE_STEPS, on_sample=record)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused.LAUNCHES
-    by_n = dict(fused.LAUNCH_SIZES)
-    it = {k: v[1] / CASE_STEPS for k, v in linsolve.STATS.items()}
-    ms = wall / CASE_STEPS * 1e3
+    launches = fused.launches()
+    by_n = dict(fused.launch_sizes())
+    caps = captures() - caps
+    timed = CASE_STEPS - 1
+    it = {k: v[1] / timed for k, v in linsolve.STATS.items()}
+    ms = wall / timed * 1e3
     say(f"case: {CASE_SETTLE} settling steps in {t_settle:.3f} s (with the "
-        f"comparisons), {CASE_STEPS} Ubar steps in {wall:.4f} s = "
+        f"comparisons), the first Ubar step with its capture in "
+        f"{t_capture:.3f} s, {timed} Ubar steps in {wall:.4f} s = "
         f"{ms:.3f} ms/step; per step {it['pcg']:.1f} PCG and "
         f"{it['bicgstab']:.1f} BiCGStab iterations "
-        f"({linsolve.STATS['pcg'][0] / CASE_STEPS:.1f} and "
-        f"{linsolve.STATS['bicgstab'][0] / CASE_STEPS:.1f} solves)")
+        f"({linsolve.STATS['pcg'][0] / timed:.1f} and "
+        f"{linsolve.STATS['bicgstab'][0] / timed:.1f} solves; counted on "
+        "the device inside the replays)")
 
     s = sim.state
     check_finite(s, "case")
@@ -1174,17 +1455,21 @@ def phase_case(dev):
     if not (gp_mean > 0.0 and ubx > 0.0 and abs(ubar - 0.8) < 1e-3):
         fail(f"case: Ubar forcing: mean grad_p_value {gp_mean}, mean Ub_x "
              f"{ubx}, Ubar {ubar}")
-    expected = 1 + (CASE_SETTLE + CASE_STEPS) * sub
+    expected = 1 + (CASE_SETTLE + CASE_STEPS + caps) * sub
     say(f"contact_chain launches: {launches} (1 setup + "
-        f"{CASE_SETTLE + CASE_STEPS} steps x {sub} substeps = {expected}) "
-        f"by N {by_n} at K {K}")
+        f"({CASE_SETTLE + CASE_STEPS} steps + {caps} capture warm-ups) x "
+        f"{sub} substeps = {expected}) by N {by_n} at K {K}")
     if launches != expected:
         fail(f"kernel launched {launches} times, expected {expected}")
 
     # host syncs, the split, the Ubar sums (after the counted run)
     n_sync = count_syncs(lambda: sim.step_fn(tree_map(torch.clone, s)))
-    say(f"case: host syncs in one coupled step: {n_sync} (torch sync debug "
-        f"mode; {sub} Verlet rebuild tests + PCG and BiCGStab stop tests)")
+    n_replay = count_syncs(lambda: sim.advance(tree_map(torch.clone, s)))
+    say(f"case: host syncs in one coupled step: {n_replay} in a replay of "
+        f"its graph, {n_sync} in the eager step (torch sync debug mode; "
+        f"{sub} Verlet rebuild tests + PCG and BiCGStab stop tests)")
+    if n_replay:
+        fail(f"case: a replayed step made {n_replay} host syncs")
     split = sim.timing_split(n=2)
     say("case timing_split (CUDA events, mean of 2): " + ", ".join(
         f"{k} {v * 1e3:.3f} ms" for k, v in split.items()))
@@ -1284,8 +1569,8 @@ def phase_clumps(dev):
     if not all(checks.values()):
         fail(f"clumps config: {[k for k, v in checks.items() if not v]}")
 
-    fused.LAUNCHES = 0
-    fused.LAUNCH_SIZES.clear()
+    fused.reset_launches()
+    caps = captures()
     state0 = CoupledStep(cfg, torch.float32, dev).initialize(fluid,
                                                              particles)
     p0 = state0.particles
@@ -1296,19 +1581,22 @@ def phase_clumps(dev):
     sim = Simulation(cfg, state0, device=dev)
     if sim.windowed:
         fail("clumps: the active window must stay off with rigid bodies")
-    run_steps(sim, 1)                                  # warm-up
+    run_steps(sim, 1)                      # warm-up, with the capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_steps(sim, CLUMP_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused.LAUNCHES
-    by_n = dict(fused.LAUNCH_SIZES)
+    launches = fused.launches()
+    by_n = dict(fused.launch_sizes())
+    caps = captures() - caps
+    counted = launch_snapshot()
     ms = wall / (CLUMP_STEPS - 1) * 1e3
-    expected = 1 + CLUMP_STEPS * sub
+    expected = 1 + (CLUMP_STEPS + caps) * sub
     say(f"clumps: steps 2-{CLUMP_STEPS} in {wall:.4f} s = {ms:.3f} ms/step; "
-        f"contact_chain launches {launches} (1 setup + {CLUMP_STEPS} steps "
-        f"x {sub} substeps = {expected}; {sub} a step) by N {by_n} at K {K}")
+        f"contact_chain launches {launches} (1 setup + ({CLUMP_STEPS} steps "
+        f"+ {caps} capture warm-up) x {sub} substeps = {expected}; {sub} a "
+        f"step) by N {by_n} at K {K}")
     if launches != expected:
         fail(f"clumps: kernel launched {launches} times, expected {expected}")
 
@@ -1328,7 +1616,7 @@ def phase_clumps(dev):
     if int(again.state.fluid.step) != CLUMP_STEPS // 2:
         fail(f"clumps: resumed at step {int(again.state.fluid.step)}")
     run_steps(again, CLUMP_STEPS)
-    fused.LAUNCHES, fused.LAUNCH_SIZES = launches, collections.Counter(by_n)
+    launch_restore(counted)
     worst, where = compare_states(sim.state, plain.state)
     say(f"clumps: {CLUMP_STEPS} steps, kernel vs plain chain: worst "
         f"{worst:.3e} ({where}; tol 1e-3; Ua, DDtUa and phia compared as "
@@ -1390,7 +1678,7 @@ def phase_clumps(dev):
     sub_ms = cuda_ms(lambda: integrate.run_dem(q, cfg.dem, 1), 50)
     free = q._replace(rigid=None)
     free_ms = cuda_ms(lambda: integrate.run_dem(free, cfg.dem, 1), 50)
-    fused.LAUNCHES, fused.LAUNCH_SIZES = launches, collections.Counter(by_n)
+    launch_restore(counted)
     say(f"clumps: the two body passes {body_ms:.4f} ms per substep (CUDA "
         f"events, mean of 50; host-bound), "
         f"{100 * body_ms / sub_ms:.1f}% of "
@@ -1431,8 +1719,7 @@ def phase_extras(dev):
             lub = dataclasses.replace(lub, flagfld=0)
         return lubrication.lubrication_forces_binned(q, lub, q.nbr_idx, plen)
 
-    fused.LAUNCHES = 0
-    fused.LAUNCH_SIZES.clear()
+    fused.reset_launches()
     K = None
     for label, kw in variants:
         torch.cuda.reset_peak_memory_stats()
@@ -1442,10 +1729,10 @@ def phase_extras(dev):
             fail(f"extras [{label}]: K {K} > 32")
         bare = dataclasses.replace(dem, cohesion=None, lubrication=None)
         p = integrate.setup_forces(p, dem)
-        counted = fused.LAUNCHES, fused.LAUNCH_SIZES.copy()
+        counted = launch_snapshot()
         ms_with = cuda_ms(lambda: integrate.run_dem(fresh(p), dem, 1), 10)
         ms_bare = cuda_ms(lambda: integrate.run_dem(fresh(p), bare, 1), 10)
-        fused.LAUNCHES, fused.LAUNCH_SIZES = counted
+        launch_restore(counted)
         p = integrate.run_dem(p, dem, EXTRAS_SUBSTEPS)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -1496,7 +1783,7 @@ def phase_extras(dev):
         # lubrication's inner cutoff is a jump in the law.)
         dem_w, w32 = cases.extras_bed(8192, dtype=torch.float32, device=dev,
                                       **kw)
-        counted = fused.LAUNCHES, fused.LAUNCH_SIZES.copy()
+        counted = launch_snapshot()
         w64 = tree_map(f64, w32)
         w32 = integrate.setup_forces(w32, dem_w)
         w64 = integrate.setup_forces(w64, dem_w)
@@ -1518,7 +1805,7 @@ def phase_extras(dev):
                            device=dev)
         b = integrate.setup_forces(b, dem_b)
         d = integrate.setup_forces(d, dem_d)
-        fused.LAUNCHES, fused.LAUNCH_SIZES = counted
+        launch_restore(counted)
         errs_d = {name: rel_err(getattr(d, name), getattr(b, name))
                   for name in ("force", "torque")}
         say(f"extras [{label}]: f32 vs f64 at 8,192, the extra's own "
@@ -1532,9 +1819,9 @@ def phase_extras(dev):
         if max(errs0.values()) > 2e-2 or errs["pos"] > 1e-5 \
                 or errs["vel"] > 2e-2 or max(errs_d.values()) > 1e-10:
             fail(f"extras [{label}]: precisions or backends disagree")
-    launches = fused.LAUNCHES
+    launches = fused.launches()
     expected = len(variants) * (1 + EXTRAS_SUBSTEPS)
-    by_n = dict(fused.LAUNCH_SIZES)
+    by_n = dict(fused.launch_sizes())
     say(f"extras: contact_chain launches {launches} ({len(variants)} "
         f"variants x (1 setup + {EXTRAS_SUBSTEPS} substeps) = {expected}) "
         f"by N {by_n} at K {K}")
@@ -1631,8 +1918,8 @@ def phase_bench(dev, floor):
                 f"{wall:.4f} s, {rate:.1f} particle-substeps/s")
         return fn
 
-    fused.LAUNCHES = 0
-    fused.LAUNCH_SIZES.clear()
+    fused.reset_launches()
+    caps = captures()
     runs = {}
     for label, sort in (("unsorted", False), ("sorted", True)):
         runs[label] = bench.run(device=dev, repeats=BENCH_REPEATS,
@@ -1641,14 +1928,16 @@ def phase_bench(dev, floor):
         say(f"bench [{label}]: median of {BENCH_REPEATS}: "
             + json.dumps(line))
     torch.cuda.synchronize()
-    launches = fused.LAUNCHES
-    by_n = dict(fused.LAUNCH_SIZES)
+    launches = fused.launches()
+    by_n = dict(fused.launch_sizes())
+    caps = captures() - caps
     plain, srt = runs["unsorted"], runs["sorted"]
     sub = plain.cfg.cloud.sub_cycles * plain.cfg.cloud.sub_steps
     n_steps = 1 + BENCH_REPEATS * plain.n_timed
-    expected = 2 * (1 + n_steps * sub)
+    expected = 2 * (1 + n_steps * sub) + caps * sub
     say(f"bench: contact_chain launches {launches} (2 runs x (1 setup + "
-        f"{n_steps} steps x {sub} substeps) = {expected}) by N {by_n}")
+        f"{n_steps} steps x {sub} substeps) + {caps} capture warm-ups x "
+        f"{sub} = {expected}) by N {by_n}")
     if launches != expected:
         fail(f"bench: kernel launched {launches} times, expected {expected}")
 
@@ -1720,12 +2009,13 @@ def phase_validate(dev):
          f"0.3 s settling + 3.0 s (33,000 steps) cut to "
          f"{VALIDATE_BEDLOAD_SETTLE} + {VALIDATE_BEDLOAD_STEPS} steps"))
     for name, fn, steps, settle, K, cut in specs:
-        fused.LAUNCHES = 0
-        fused.LAUNCH_SIZES.clear()
+        fused.reset_launches()
+        caps = captures()
         t0 = time.perf_counter()
         res = fn()
         wall = time.perf_counter() - t0
-        launches, by_n = fused.LAUNCHES, dict(fused.LAUNCH_SIZES)
+        launches, by_n = fused.launches(), dict(fused.launch_sizes())
+        caps = captures() - caps
         say(f"validate [{name}]: {cut}; {wall:.1f} s in all, "
             f"{res['wall_time_s'] / steps * 1e3:.1f} ms/step; "
             + json.dumps(res))
@@ -1739,12 +2029,15 @@ def phase_validate(dev):
         if res["nbr_dropped"] != 0:
             fail(f"validate {name}: neighbor audit dropped "
                  f"{res['nbr_dropped']} in-ring partners")
-        # 1 setup, the steps, and timing_split's 1 + 5 evolves
+        # 1 setup, the steps, a warm-up step per capture (the settling
+        # run and the forced run capture one each) and timing_split's
+        # 1 + 5 evolves
         sub = 50 if name == "irregular" else 40
-        expected = 1 + (steps + settle + 6) * sub
+        expected = 1 + (steps + settle + caps + 6) * sub
         say(f"validate [{name}]: contact_chain launches {launches} (1 setup"
-            f" + ({steps + settle} steps + 6 evolves of the timing split) "
-            f"x {sub} substeps = {expected}) by N {by_n} at K {K}")
+            f" + ({steps + settle} steps + {caps} capture warm-ups + 6 "
+            f"evolves of the timing split) x {sub} substeps = {expected}) "
+            f"by N {by_n} at K {K}")
         if launches != expected:
             fail(f"validate {name}: kernel launched {launches} times, "
                  f"expected {expected}")
@@ -1753,6 +2046,7 @@ def phase_validate(dev):
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1763,6 +2057,7 @@ def main():
     phase_build()
     k = phase_kernel(dev)
     launches = phase_main_path(dev)
+    graph_ran = phase_graph(dev)
     launches += phase_runner(dev)
     inject_launches, by_n = phase_inject(dev)
     launches += inject_launches
@@ -1775,10 +2070,14 @@ def main():
     phase_dns(dev)
     bench = phase_bench(dev, k["floor_us"])
     validate = phase_validate(dev)
+    say(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     say(smi)
     ran_at = [{"N": 131072, "K": 8, "launches": launches - inject_launches
                - case["launches"]}]
     ran_at += [{"N": n, "K": 8, "launches": c} for n, c in by_n.items()]
+    ran_at += graph_ran
+    launches += sum(r["launches"] for r in graph_ran)
     paths = (case, clumps, extras, bench) + tuple(validate.values())
     for path in paths:
         ran_at += [{"N": n, "K": path["K"], "launches": path["launches"]}
@@ -1797,7 +2096,7 @@ def main():
         "library_ms": None, "wrapper_ms": k["ms"],
         "case_wrapper_ms": case["ms"], "case_plain_ms": case["plain_ms"],
         "bench_rates": bench_rates, "shapes": k["shapes"],
-        "ran_at": ran_at}]}))
+        "graphs": GRAPHS, "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

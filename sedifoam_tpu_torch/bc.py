@@ -33,7 +33,8 @@ class TimeTable:
     uniformFixedValue with a table, e.g. xiaocase1/0/Ub inlet ramp).
 
     Static (hashable); evaluation at a tensor time gives a 0-d tensor on
-    the time's device, with no host sync.
+    the time's device, with no host sync: the table's knots go to the
+    device once (device_vector), not at every call.
     """
 
     times: Tuple[float, ...]
@@ -42,11 +43,11 @@ class TimeTable:
     def at(self, t, comp: int):
         """np.interp semantics: linear between knots, clamped outside."""
         import torch
+        from sedifoam_tpu_torch import device_vector
         t = torch.as_tensor(t, dtype=torch.float64)
-        ts = torch.tensor(self.times, dtype=t.dtype, device=t.device)
-        vs = torch.tensor([v[comp] if len(v) > 1 else v[0]
-                           for v in self.values], dtype=t.dtype,
-                          device=t.device)
+        ts = device_vector(tuple(self.times), t.dtype, t.device)
+        vs = device_vector(tuple(v[comp] if len(v) > 1 else v[0]
+                                 for v in self.values), t.dtype, t.device)
         if len(self.times) == 1:
             return vs[0]
         hi = torch.searchsorted(ts, t.reshape(1), right=True)

@@ -8,12 +8,14 @@ substeps per second.
   python -m sedifoam_tpu_torch.bench [--small] [--backend=dense|binned]
         [--device cpu] [--repeats N] [--sort-on-rebuild]
 
-One warm-up step, then 10 timed steps (3 with --small) that end in a real
-device-to-host fetch. --repeats N times that block N times on the same
-state, prints each repeat's rate on a line of its own and reports the
-median: on a host-bound eager path two calls on one card differ by up to
-2x. Runs on the CUDA card unless --device names another device, and
-raises where there is no card.
+On the card the step is the captured CUDA graph (solver.GraphedStep),
+as the reference's bench times its jitted step: one warm-up step, which
+includes the capture, then 10 timed replays (3 with --small) that end in
+a real device-to-host fetch. On the CPU the same loop runs the eager
+step. --repeats N times that block N times on the same state, prints
+each repeat's rate on a line of its own and reports the median. Runs on
+the CUDA card unless --device names another device, and raises where
+there is no card.
 
 Prints ONE JSON line last: {"metric", "value", "unit", "vs_baseline"}.
 A run whose neighbor table ever dropped an in-ring partner (K too small
@@ -49,7 +51,8 @@ METRIC = "particle_dem_substeps_per_sec_coupled"
 
 class BenchRun(NamedTuple):
     cfg: object            # SimConfig of the case
-    step: object           # the CoupledStep that was timed
+    step: object           # the step that was timed: a GraphedStep on
+    #                        the card (its .step is the CoupledStep)
     state: object          # SimState after the last timed step
     n_timed: int           # coupled steps per timed block
     walls: List[float]     # seconds of each timed block
@@ -84,7 +87,7 @@ def run(small: bool = False, backend: str = None, device=None,
     10 coupled steps (3 when small) on the same state.
     `report(i, wall, rate)` is called after each block. Raises SystemExit
     when the neighbor audit failed."""
-    from sedifoam_tpu_torch.solver import CoupledStep
+    from sedifoam_tpu_torch.solver import CoupledStep, GraphedStep
 
     device = default_device(device)
     size = SMALL if small else bench_case.FULL
@@ -94,10 +97,11 @@ def run(small: bool = False, backend: str = None, device=None,
     n = size["n_particles"]
     sub = cfg.cloud.sub_cycles * cfg.cloud.sub_steps
     fluid, particles = bench_case.build_state(cfg, n, torch.float32, device)
-    step = CoupledStep(cfg, dtype=torch.float32, device=device)
-    state = step.initialize(fluid, particles)
+    eager = CoupledStep(cfg, dtype=torch.float32, device=device)
+    state = eager.initialize(fluid, particles)
+    step = GraphedStep(eager) if device.type == "cuda" else eager
 
-    state = step(state)                                    # warm-up
+    state = step(state)                          # warm-up (and capture)
     fetch(state)
 
     n_timed = 3 if small else 10

@@ -13,9 +13,10 @@ Per fluid step:
   3. liftDragCoeffs.H: cap alpha, calcTcFields -> Asrc, lift coefficient
 
 With injection on, each subcycle first runs inject.maybe_add_delete. Its
-`lax.cond`s in the reference are Python branches here: whether an add
-fired and whether the delete box removed anyone are read from the device
-(inject.SYNCS counts these syncs).
+`lax.cond`s in the reference are graphs.conds here (conditional nodes in
+a captured step): whether an add fired and whether the delete box
+removed anyone stay on the device; an eager step reads them on the host
+(inject.SYNCS counts those reads).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Tuple
 import torch
 
 from sedifoam_tpu_torch import bc as _bc
+from sedifoam_tpu_torch import graphs
 from sedifoam_tpu_torch import ops
 from sedifoam_tpu_torch.config import CloudConfig, DEMConfig, FluidConfig
 from sedifoam_tpu_torch.coupling import drag as _drag
@@ -53,7 +55,7 @@ def _delete_outside(state: ParticleState, grid: Grid, dcfg: DEMConfig
 
     The neighbor table is then scrubbed of dead partners. The reference
     gates the scrub on an actual deletion; the scrub is idempotent, so
-    it runs every time here and saves a host sync.
+    it runs every time here and needs no decision.
     """
     lo = (grid.x0, grid.y0, grid.z0)
     hi = grid.hi
@@ -102,17 +104,25 @@ def evolve(fluid: FluidState, particles: ParticleState,
                 particles, particles.time_to_add, particles.rng_key,
                 sites, grid, ccfg, fcfg.dt)
             particles = particles_._replace(time_to_add=tta, rng_key=key)
-            if added:
+
+            def setup(st):
                 # newly added particles need a fresh neighbor table and
                 # forces (their reused slots carry stale rows)
-                particles = _dem.maybe_rebuild_neighbors(particles, dcfg,
-                                                         force=True)
-                particles = _dem.compute_forces(particles, dcfg,
-                                                shearupdate=False)
-            elif deleted:
-                # deletions alone need no rebuild, but stale partners
-                # must leave the table (tests/test_ghost_partner.py)
-                particles = _dem.scrub_deactivated(particles, dcfg)
+                st = _dem.maybe_rebuild_neighbors(st, dcfg, force=True)
+                return _dem.compute_forces(st, dcfg, shearupdate=False)
+
+            # the reference's cond(added, setup, cond(deleted, scrub)) as
+            # two conds in a row: deletions alone need no rebuild, but
+            # stale partners must leave the table
+            # (tests/test_ghost_partner.py)
+            if ccfg.add_particle > 0:
+                _inject.count_sync()
+                particles = graphs.cond(added, setup, particles)
+            if ccfg.delete_particle > 0 and len(ccfg.delete_box) == 6:
+                _inject.count_sync()
+                particles = graphs.cond(
+                    deleted & ~added,
+                    lambda st: _dem.scrub_deactivated(st, dcfg), particles)
 
         p_drag, p_dudt, particles = _forces.particle_forces(
             particles, uf_smoothed, uf_smoothed_old, grad_p, curl_u,

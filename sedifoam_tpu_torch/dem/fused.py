@@ -15,7 +15,12 @@ kernel (or raises); on a CPU tensor, and only there, it runs
 function (``neighbor.pair_forces_binned`` + ``walls.wall_forces``).
 ``LAUNCHES`` counts kernel launches, so a run can show that its main
 path went through the kernel; ``LAUNCH_SIZES`` counts them by particle
-count N (the runner's active window launches it at several N).
+count N (the runner's active window launches it at several N). A launch
+inside a captured CUDA graph (graphs.StepGraph) happens at every replay
+of the graph, not where the wrapper runs: there the wrapper captures one
+more kernel, which adds one to a counter on the device beside the
+launch. ``launches()`` and ``launch_sizes()`` add those counters to the
+eager counts (a host read).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import functools
 
 import torch
 
-from sedifoam_tpu_torch import _build
+from sedifoam_tpu_torch import _build, graphs
 from sedifoam_tpu_torch.config import (PAIR_HERTZ_HISTORY, PAIR_HOOKE,
                                        PAIR_HOOKE_HISTORY, WALL_ZCYLINDER,
                                        PairParams)
@@ -37,9 +42,59 @@ from sedifoam_tpu_torch.dem.state import ParticleState
 from sedifoam_tpu_torch.dem.walls import wall_forces
 
 # kernel launches in this process (incremented once per launch), in all
-# and by N
+# and by N, outside CUDA graphs; inside them, one int64 counter per
+# (device, N) on the device, made at the first eager launch
 LAUNCHES = 0
 LAUNCH_SIZES = collections.Counter()
+GRAPH_LAUNCHES = {}
+# launches captured into graphs, by N (each runs at every replay that
+# reaches it)
+CAPTURED = collections.Counter()
+
+
+def launch_sizes() -> collections.Counter:
+    """Launches by N, eager and inside replayed graphs (a host read)."""
+    out = collections.Counter(LAUNCH_SIZES)
+    for (_, n), c in GRAPH_LAUNCHES.items():
+        out[n] += int(c)
+    return +out
+
+
+def launches() -> int:
+    """All launches, eager and inside replayed graphs (a host read)."""
+    return sum(launch_sizes().values())
+
+
+def graph_launches() -> int:
+    """Launches inside replayed graphs (a host read)."""
+    return sum(int(c) for c in GRAPH_LAUNCHES.values())
+
+
+def reset_launches() -> None:
+    """Zero every count, the device counters in place (a captured graph
+    keeps adding to the same ones)."""
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCH_SIZES.clear()
+    for c in GRAPH_LAUNCHES.values():
+        c.zero_()
+
+
+def _count(n, device):
+    global LAUNCHES
+    key = (device, n)
+    if graphs.capturing():
+        if key not in GRAPH_LAUNCHES:
+            raise RuntimeError(f"contact_chain: first launch at N={n} under "
+                               "a capture: warm up the step first")
+        GRAPH_LAUNCHES[key].add_(1)
+        CAPTURED[n] += 1
+        return
+    if key not in GRAPH_LAUNCHES:
+        GRAPH_LAUNCHES[key] = torch.zeros((), dtype=torch.int64,
+                                          device=device)
+    LAUNCHES += 1
+    LAUNCH_SIZES[n] += 1
 
 MAX_WALLS = 6
 _BIG = 1e30
@@ -203,7 +258,6 @@ def check_inputs(state, idx, n_walls):
 
 def _launch(state, params, dt, idx, shearupdate, periodic_len, walls):
     """Launch the kernel on the current stream."""
-    global LAUNCHES
     W = len(walls)
     check_inputs(state, idx, W)
     x = state.pos
@@ -233,6 +287,5 @@ def _launch(state, params, dt, idx, shearupdate, periodic_len, walls):
     if err != 0:
         msg = lib.contact_chain_error_string(err).decode()
         raise RuntimeError(f"contact_chain kernel launch failed: {msg}")
-    LAUNCHES += 1
-    LAUNCH_SIZES[n] += 1
+    _count(n, device)
     return force, torque, shear, wall_shear

@@ -15,9 +15,11 @@ int64 tensors that hold uint32 values. They are pure functions of the
 state's `rng_key`, so a checkpoint captures the generator, and a JAX
 checkpoint resumed here draws the same perturbations bit for bit.
 
-`maybe_add_delete` decides on the host whether an add fired and whether
-the delete box removed anyone: each decision is one device-to-host sync,
-counted in `SYNCS`.
+`maybe_add_delete` decides whether an add fires with the reference's
+lax.cond (graphs.cond: a conditional node inside a captured step) and
+returns whether it fired and whether the delete box removed anyone as
+device tensors, for the caller's conds. `SYNCS` counts the decisions
+read on the host: those of eager calls.
 """
 
 from __future__ import annotations
@@ -27,11 +29,13 @@ import math
 import numpy as np
 import torch
 
+from sedifoam_tpu_torch import device_vector, graphs
 from sedifoam_tpu_torch.config import CloudConfig
 from sedifoam_tpu_torch.dem.state import ParticleState
 from sedifoam_tpu_torch.grid import Grid
 
-# device-to-host syncs made by maybe_add_delete in this process
+# injection decisions read on the host in this process (eager calls of
+# maybe_add_delete and of coupling.cloud.evolve's add/delete branches)
 SYNCS = 0
 
 _M32 = 0xFFFFFFFF
@@ -126,8 +130,8 @@ def seed_positions(grid: Grid, box, reduce_factor: int) -> np.ndarray:
 
 
 def _in_box(pos, box):
-    lo = torch.tensor(box[0::2], dtype=pos.dtype, device=pos.device)
-    hi = torch.tensor(box[1::2], dtype=pos.dtype, device=pos.device)
+    lo = device_vector(tuple(box[0::2]), pos.dtype, pos.device)
+    hi = device_vector(tuple(box[1::2]), pos.dtype, pos.device)
     return torch.all((pos >= lo) & (pos <= hi), dim=-1)
 
 
@@ -163,8 +167,8 @@ def add_particles(state: ParticleState, sites, ccfg: CloudConfig,
     perturb = ccfg.random_perturb * (0.5 - uniform(rng_key, (n_add, 3),
                                                    dtype))
     new_pos = sites.to(dtype) + perturb
-    new_vel = torch.tensor(ccfg.add_velocity, dtype=state.vel.dtype,
-                           device=dev).expand(n_add, 3)
+    new_vel = device_vector(tuple(ccfg.add_velocity), state.vel.dtype,
+                            dev).expand(n_add, 3)
 
     max_tag = torch.max(torch.where(state.active, state.tag,
                                     torch.zeros_like(state.tag)))
@@ -203,6 +207,13 @@ def add_particles(state: ParticleState, sites, ccfg: CloudConfig,
     )
 
 
+def count_sync():
+    """Count one injection decision read on the host (eager only)."""
+    global SYNCS
+    if not graphs.capturing():
+        SYNCS += 1
+
+
 def maybe_add_delete(state: ParticleState, time_to_add, rng_key, sites,
                      grid: Grid, ccfg: CloudConfig, dt_fluid: float):
     """The addAndDeleteParticle step (softParticleCloud.C:1206-1268).
@@ -211,34 +222,36 @@ def maybe_add_delete(state: ParticleState, time_to_add, rng_key, sites,
     and refilled and the countdown resets; otherwise it decrements by the
     fluid dt. Box deletion runs every call. The key splits on every call
     with an add region, fired or not, as in the reference. Returns
-    (state, new_time_to_add, new_rng_key, added, deleted) with `added`
-    and `deleted` Python bools, each read from the device (one sync
-    apiece, counted in SYNCS). After an add the caller rebuilds the
-    neighbor table and recomputes forces; after a delete alone it scrubs
-    dead partners from the table.
+    (state, new_time_to_add, new_rng_key, added, deleted), `added` and
+    `deleted` 0-d bool tensors on the device. After an add the caller
+    rebuilds the neighbor table and recomputes forces; after a delete
+    alone it scrubs dead partners from the table.
     """
-    global SYNCS
-    added = False
-    deleted = False
+    dev = state.pos.device
+    added = torch.zeros((), dtype=torch.bool, device=dev)
+    deleted = torch.zeros((), dtype=torch.bool, device=dev)
     if ccfg.add_particle > 0 and sites.shape[0] > 0:
         keys = split(rng_key)
         key_add, key_next = keys[0], keys[1]
-        due = bool(time_to_add <= 0.0)                 # host sync
-        SYNCS += 1
-        if due:
+
+        def do_add(st):
             if ccfg.delete_before_add and len(ccfg.clear_box) == 6:
-                state = delete_in_box(state, ccfg.clear_box)
-            state = add_particles(state, sites, ccfg, key_add)
-            time_to_add = torch.full_like(time_to_add, ccfg.add_interval)
-        else:
-            time_to_add = time_to_add - dt_fluid
+                st = delete_in_box(st, ccfg.clear_box)
+            return add_particles(st, sites, ccfg, key_add)
+
+        due = time_to_add <= 0.0
+        count_sync()
+        state = graphs.cond(due, do_add, state)
+        time_to_add = torch.where(due,
+                                  torch.full_like(time_to_add,
+                                                  ccfg.add_interval),
+                                  time_to_add - dt_fluid)
         rng_key = key_next
         added = due
 
     if ccfg.delete_particle > 0 and len(ccfg.delete_box) == 6:
         was_active = state.active
         state = delete_in_box(state, ccfg.delete_box)
-        deleted = bool(torch.any(was_active != state.active))  # host sync
-        SYNCS += 1
+        deleted = torch.any(was_active != state.active)
 
     return state, time_to_add, rng_key, added, deleted

@@ -13,15 +13,16 @@ members in both integrate halves.
 
 `setup_forces` is the one-time setup() pass (shearupdate off, matching
 pair_gran_hertzFix_history.cpp:65-66). The binned Verlet-skin rebuild
-test is Python control flow: one host sync per substep. The dense
-backend has no table: no rebuild, no scrub, no sync.
+test is the reference's lax.cond as graphs.cond: a conditional node in
+a captured step, one host read per substep when run eagerly. The dense
+backend has no table: no rebuild, no scrub, no test.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sedifoam_tpu_torch import device_vector
+from sedifoam_tpu_torch import device_vector, graphs
 from sedifoam_tpu_torch.config import DEMConfig
 from sedifoam_tpu_torch.dem.cohesion import (cohesion_forces,
                                              cohesion_forces_binned)
@@ -54,7 +55,9 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
                             force: bool = False) -> ParticleState:
     """Verlet-skin rebuild check (binned backend): rebuild when any
     active particle moved more than half the skin since the last build.
-    The dense backend has no table and returns the state unchanged."""
+    The test is the reference's lax.cond (graphs.cond: a conditional node
+    inside a captured step); force=True rebuilds unconditionally. The
+    dense backend has no table and returns the state unchanged."""
     _require_ported(cfg)
     if cfg.backend != "binned":
         return state
@@ -63,41 +66,45 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
                                                  make_sort_order,
                                                  permute_particle_state)
 
-    if not force:
-        disp = state.pos - state.pos_at_build
-        cols = []
-        for a in range(3):
-            da = disp[:, a]
-            if cfg.periodic[a]:
-                L = cfg.domain_hi[a] - cfg.domain_lo[a]
-                da = da - L * torch.round(da / L)
-            cols.append(da)
-        disp = torch.stack(cols, dim=-1)
-        max_d2 = torch.max(torch.sum(disp * disp, dim=-1) * state.active)
-        if not bool(max_d2 > (0.5 * cfg.skin) ** 2):   # host sync
-            return state
-
-    if cfg.sort_on_rebuild:
-        sort_fn = make_sort_order(cfg.domain_lo, cfg.domain_hi, cfg.cutoff,
-                                  periodic=cfg.periodic)
-        state = permute_particle_state(state,
-                                       sort_fn(state.pos, state.active))
     rebuild_fn = make_binner(cfg.domain_lo, cfg.domain_hi, cfg.cutoff,
                              cfg.nbr_k, cfg.max_per_bin,
                              periodic=cfg.periodic,
                              audit_ring=cfg.audit_ring)
-    idx, dropped = rebuild_fn(state.pos, state.active)
-    if state.rigid is not None:
-        # intra-body contacts are excluded at the TABLE (rebuild-time
-        # scrub, no per-substep cost), so the contact chain never sees
-        # one: members at fixed overlap exert central equal-opposite
-        # forces that cancel in the body sums anyway (dem/rigid.py)
-        from sedifoam_tpu_torch.dem.rigid import scrub_same_mol
-        idx = scrub_same_mol(idx, state.mol)
-    shear = carry_over_shear(state.nbr_idx, idx, state.shear)
-    return state._replace(nbr_idx=idx, shear=shear, pos_at_build=state.pos,
-                          nbr_dropped=torch.maximum(state.nbr_dropped,
-                                                    dropped))
+    sort_fn = make_sort_order(cfg.domain_lo, cfg.domain_hi, cfg.cutoff,
+                              periodic=cfg.periodic) \
+        if cfg.sort_on_rebuild else None
+
+    def do_rebuild(st: ParticleState) -> ParticleState:
+        if sort_fn is not None:
+            st = permute_particle_state(st, sort_fn(st.pos, st.active))
+        idx, dropped = rebuild_fn(st.pos, st.active)
+        if st.rigid is not None:
+            # intra-body contacts are excluded at the TABLE (rebuild-time
+            # scrub, no per-substep cost), so the contact chain never
+            # sees one: members at fixed overlap exert central
+            # equal-opposite forces that cancel in the body sums anyway
+            # (dem/rigid.py)
+            from sedifoam_tpu_torch.dem.rigid import scrub_same_mol
+            idx = scrub_same_mol(idx, st.mol)
+        shear = carry_over_shear(st.nbr_idx, idx, st.shear)
+        return st._replace(nbr_idx=idx, shear=shear, pos_at_build=st.pos,
+                           nbr_dropped=torch.maximum(st.nbr_dropped,
+                                                     dropped))
+
+    if force:
+        return do_rebuild(state)
+
+    disp = state.pos - state.pos_at_build
+    cols = []
+    for a in range(3):
+        da = disp[:, a]
+        if cfg.periodic[a]:
+            L = cfg.domain_hi[a] - cfg.domain_lo[a]
+            da = da - L * torch.round(da / L)
+        cols.append(da)
+    disp = torch.stack(cols, dim=-1)
+    max_d2 = torch.max(torch.sum(disp * disp, dim=-1) * state.active)
+    return graphs.cond(max_d2 > (0.5 * cfg.skin) ** 2, do_rebuild, state)
 
 
 def compute_forces(state: ParticleState, cfg: DEMConfig,

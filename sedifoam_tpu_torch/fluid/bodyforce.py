@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sedifoam_tpu_torch import device_vector
 from sedifoam_tpu_torch.dem import inject as _rng
 from sedifoam_tpu_torch.grid import Grid
 
@@ -81,8 +82,8 @@ def uo_forcing_step(state: UOForcingState, grid: Grid, dt: float,
     key, sub = keys[0], keys[1]
     dtype = state.f_hat.dtype
     xi = _rng.normal(sub, state.f_hat.shape, dtype)
-    sqrt_dt = torch.sqrt(torch.tensor(dt, dtype=dtype,
-                                      device=state.f_hat.device))
+    sqrt_dt = torch.sqrt(device_vector((dt,), dtype,
+                                       state.f_hat.device).reshape(()))
     f_hat = (1.0 - alpha * dt) * state.f_hat + sigma * sqrt_dt * xi
 
     _, k_mag, kn = _wavevectors(grid, dtype, state.f_hat.device)

@@ -7,7 +7,8 @@ entirely through nuEff (divDevReff is assembled in piso.py with whatever
 nuEff the model returns) plus the transported k/epsilon fields.
 
 The kEqn and kEpsilon transport equations use upwind convection and
-BiCGStab solves (linsolve.bicgstab: one host sync per iteration). The
+BiCGStab solves (linsolve.bicgstab, a while_loop: a conditional node in
+the captured step, a host read per iteration when run eagerly). The
 kEpsilon wall-function mask depends only on the grid and the velocity
 BCs; it is built once per (grid, BCs, dtype, device) and kept.
 """

@@ -7,11 +7,13 @@ termination gives comparable answers:
 
     normFactor = sum(|A x - A xRef| + |b - A xRef|),  xRef = mean(x) * ones
 
-The reference's lax.while_loop is a Python loop with the same stop rule
-(tolerance floored at the dtype's round-off, relative tolerance, stall
-counter, finite check); deciding to stop costs one host sync per
-iteration and one at the end. `STATS` counts solves and iterations per
-solver (so solves + iterations stop tests, each a host sync).
+The reference's lax.while_loop is graphs.while_loop with the same
+carry, body and stop rule (tolerance floored at the dtype's round-off,
+relative tolerance, stall counter, finite check, max_iter): inside a
+captured step it is a WHILE node that tests the stop rule on the device;
+run eagerly it reads the rule on the host once per iteration. `STATS`
+counts solves and iterations per solver on the device (a captured solve
+counts at every replay) and turns them into numbers when read.
 
 ``pcg_multi`` is not ported: its one caller, the smoothing's PCG branch,
 is dead while the FastDiag smoothing is on (it always is in the port).
@@ -19,19 +21,74 @@ is dead while the FastDiag smoothing is on (it always is in the port).
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Callable, NamedTuple
 
 import torch
 
+from sedifoam_tpu_torch import graphs
+
 _SMALL = 1e-300  # solverPerformance::small_ analogue (f64)
 
-# [solves, iterations] per solver since the last reset_stats()
-STATS = {"pcg": [0, 0], "bicgstab": [0, 0]}
+class _Stats(Mapping):
+    """[solves, iterations] per solver since the last reset_stats(),
+    kept as one int64 pair per solver and device on the device (written
+    in place, so a captured step adds to the same pair at every replay)
+    and summed on the host only when read."""
+
+    NAMES = ("pcg", "bicgstab")
+
+    def __init__(self):
+        self.counters = {}
+
+    def add(self, name, it):
+        c = self.counters.get((name, it.device))
+        if c is None:
+            if graphs.capturing():
+                raise RuntimeError("linsolve.STATS: the first solve on a "
+                                   "device must run before a capture")
+            c = torch.zeros(2, dtype=torch.int64, device=it.device)
+            self.counters[(name, it.device)] = c
+        c[0].add_(1)
+        c[1].add_(it)
+
+    def __getitem__(self, name):
+        if name not in self.NAMES:
+            raise KeyError(name)
+        out = [0, 0]
+        for (n, _), c in self.counters.items():
+            if n == name:
+                out = [a + int(b) for a, b in zip(out, c.tolist())]
+        return out
+
+    def __iter__(self):
+        return iter(self.NAMES)
+
+    def __len__(self):
+        return len(self.NAMES)
+
+    def reset(self):
+        for c in self.counters.values():
+            c.zero_()
+
+    def snapshot(self):
+        return {k: c.clone() for k, c in self.counters.items()}
+
+    def restore(self, saved):
+        """Put the counts of snapshot() back, in place (the device
+        counters a captured step adds to stay the same tensors)."""
+        for k, c in self.counters.items():
+            if k in saved:
+                c.copy_(saved[k])
+            else:
+                c.zero_()
+
+
+STATS = _Stats()
 
 
 def reset_stats():
-    for v in STATS.values():
-        v[:] = [0, 0]
+    STATS.reset()
 
 
 class SolveResult(NamedTuple):
@@ -81,21 +138,20 @@ def pcg(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
         precond = lambda r: inv_diag * r  # noqa: E731 (Jacobi default)
 
     nf = norm_factor(apply_fn, x0, b)
-    r = b - apply_fn(x0)
-    res0 = torch.sum(torch.abs(r)) / nf
-    x, p = x0, torch.zeros_like(x0)
-    rz_old = torch.ones((), dtype=x0.dtype, device=x0.device)
-    res, best = res0, res0
-    stall = torch.zeros((), dtype=torch.int32, device=x0.device)
-    it = 0
-    while it < max_iter:
-        go = (res > tol) & (res > rel_tol * res0) & (stall < 8) \
-            & torch.isfinite(res)
-        if not bool(go):                                # host sync
-            break
+    r0 = b - apply_fn(x0)
+    res0 = torch.sum(torch.abs(r0)) / nf
+
+    def cond(state):
+        x, r, p, rz, it, res, best, stall = state
+        not_conv = (res > tol) & (res > rel_tol * res0)
+        return not_conv & (it < max_iter) & (stall < 8) & torch.isfinite(res)
+
+    def body(state):
+        x, r, p, rz_old, it, _, best, stall = state
         z = precond(r)
         rz = torch.sum(r * z)
-        beta = torch.zeros_like(rz) if it == 0 else _safe_ratio(rz, rz_old)
+        beta = torch.where(it == 0, torch.zeros_like(rz),
+                           _safe_ratio(rz, rz_old))
         p = z + beta * p
         Ap = apply_fn(p)
         pAp = torch.sum(p * Ap)
@@ -106,12 +162,15 @@ def pcg(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
         improved = res < 0.999 * best
         stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
         best = torch.minimum(best, res)
-        rz_old = rz
-        it += 1
-    STATS["pcg"][0] += 1
-    STATS["pcg"][1] += it
-    return SolveResult(x, res0, res,
-                       torch.tensor(it, dtype=torch.int32, device=x0.device))
+        return (x, r, p, rz, it + 1, res, best, stall)
+
+    zero = torch.zeros((), dtype=torch.int32, device=x0.device)
+    init = (x0, r0, torch.zeros_like(x0),
+            torch.ones((), dtype=x0.dtype, device=x0.device), zero,
+            res0, res0, zero)
+    x, r, p, rz, it, res, best, stall = graphs.while_loop(cond, body, init)
+    STATS.add("pcg", it)
+    return SolveResult(x, res0, res, it)
 
 
 def bicgstab(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
@@ -127,24 +186,22 @@ def bicgstab(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
         return apply_fn(inv_diag * v)
 
     nf = norm_factor(apply_fn, x0, b)
-    y = diag * x0
-    r = b - prec_apply(y)
-    rhat = r
-    res0 = torch.sum(torch.abs(r)) / nf
-    p, v = torch.zeros_like(x0), torch.zeros_like(x0)
-    rho_old = alpha = omega = torch.ones((), dtype=x0.dtype,
-                                         device=x0.device)
-    res, best = res0, res0
-    stall = torch.zeros((), dtype=torch.int32, device=x0.device)
-    it = 0
-    while it < max_iter:
-        go = (res > tol) & (res > rel_tol * res0) & (stall < 10) \
-            & torch.isfinite(res)
-        if not bool(go):                                # host sync
-            break
+    y0 = diag * x0
+    r0 = b - prec_apply(y0)
+    rhat = r0
+    res0 = torch.sum(torch.abs(r0)) / nf
+
+    def cond(state):
+        y, r, p, v, rho, alpha, omega, it, res, best, stall = state
+        not_conv = (res > tol) & (res > rel_tol * res0)
+        return not_conv & (it < max_iter) & (stall < 10) & \
+            torch.isfinite(res)
+
+    def body(state):
+        y, r, p, v, rho_old, alpha, omega, it, _, best, stall = state
         rho = torch.sum(rhat * r)
-        beta = torch.zeros_like(rho) if it == 0 else \
-            _safe_ratio(rho, rho_old) * _safe_ratio(alpha, omega)
+        beta = _safe_ratio(rho, rho_old) * _safe_ratio(alpha, omega)
+        beta = torch.where(it == 0, torch.zeros_like(beta), beta)
         p = r + beta * (p - omega * v)
         v = prec_apply(p)
         alpha = _safe_ratio(rho, torch.sum(rhat * v))
@@ -157,9 +214,13 @@ def bicgstab(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
         improved = res < 0.999 * best
         stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
         best = torch.minimum(best, res)
-        rho_old = rho
-        it += 1
-    STATS["bicgstab"][0] += 1
-    STATS["bicgstab"][1] += it
-    return SolveResult(inv_diag * y, res0, res,
-                       torch.tensor(it, dtype=torch.int32, device=x0.device))
+        return (y, r, p, v, rho, alpha, omega, it + 1, res, best, stall)
+
+    one = torch.ones((), dtype=x0.dtype, device=x0.device)
+    zero = torch.zeros((), dtype=torch.int32, device=x0.device)
+    init = (y0, r0, torch.zeros_like(x0), torch.zeros_like(x0),
+            one, one, one, zero, res0, res0, zero)
+    y, r, p, v, rho, alpha, omega, it, res, best, stall = graphs.while_loop(
+        cond, body, init)
+    STATS.add("bicgstab", it)
+    return SolveResult(inv_diag * y, res0, res, it)

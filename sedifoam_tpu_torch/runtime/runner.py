@@ -5,10 +5,14 @@ The lammpsFoam main-loop services (lammpsFoam.C:74-129): stepping to
 endTime, probe sampling, periodic field/checkpoint writes, per-phase
 timing splits (writeCPUTime.H analogue), and diagnostics logging.
 
-The step is one `solver.CoupledStep` module on an explicit device.
-PyTorch runs eagerly, so the host reads the device at each visit: the
-simulated time (the loop test), the window's high-water mark when
-windowed, one probe sample and one diagnostics dict when due.
+The step is one `solver.CoupledStep` module on an explicit device. On a
+CUDA device the Simulation replays it as a captured CUDA graph
+(`solver.GraphedStep`): `steps_per_host_visit` replays, one launch each
+and no host sync inside, between two visits. The host reads the device
+only at a visit: the simulated time (the loop test), the window's
+high-water mark when windowed (a grown window captures the step anew),
+one probe sample and one diagnostics dict when due. On the CPU the step
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from sedifoam_tpu_torch import default_device
 from sedifoam_tpu_torch.runtime import checkpoint as _ckpt
 from sedifoam_tpu_torch.runtime import diagnostics as _diag
 from sedifoam_tpu_torch.runtime.probes import Probes
-from sedifoam_tpu_torch.solver import CoupledStep, SimConfig, SimState
+from sedifoam_tpu_torch.solver import (CoupledStep, GraphedStep, SimConfig,
+                                       SimState)
 
 
 def _tree_map(fn, obj):
@@ -45,7 +50,9 @@ class Simulation:
 
     The contact-chain kernel updates the contact history in place, so
     the Simulation keeps a private copy of the state's shear history:
-    two Simulations built from one state step independently."""
+    two Simulations built from one state step independently. On the card
+    `state` is then the captured graph's buffers, which the next step
+    overwrites: clone what must outlive it."""
 
     def __init__(self, cfg: SimConfig, state: SimState,
                  probe_locations: Optional[Sequence] = None,
@@ -60,6 +67,9 @@ class Simulation:
         self.state = state._replace(particles=ps._replace(
             shear=ps.shear.clone(), wall_shear=ps.wall_shear.clone()))
         self.step_fn = CoupledStep(cfg, state.fluid.p.dtype, self.device)
+        # the step the loop takes: the captured graph on the card
+        self.advance = (GraphedStep(self.step_fn)
+                        if self.device.type == "cuda" else self.step_fn)
         self.steps_per_visit = steps_per_host_visit
         # Active-window stepping (runtime/window.py): auto-on for binned
         # injection cases without rigid clumps; every per-substep cost
@@ -138,7 +148,7 @@ class Simulation:
         t0 = time.perf_counter()
         while t < t_end - 1e-12:
             for _ in range(self.steps_per_visit):
-                self.state = self.step_fn(self.state)
+                self.state = self.advance(self.state)
             visit += 1
             t = self.t                                 # one read per visit
             if self.windowed:

@@ -8,11 +8,17 @@ Reproduces the lammpsFoam main loop (lammpsFoam/lammpsFoam.C:52-129):
          moveParticles: evolve() (subcycled DEM + averaging) (particles)
          liftDragCoeffs: alpha cap + Asrc + lift        (coupling)
 
-PyTorch runs eagerly: the reference's single XLA computation is a
-sequence of kernels here, with a few host syncs per step (the Verlet
-rebuild test once per DEM substep, the PCG stop test once per
-iteration). `CoupledStep` owns the constant operators (the smoothing
-solver and the pressure preconditioner) as submodules.
+The reference jits the step into one XLA computation; here, on a CUDA
+device, `GraphedStep` captures it once as a CUDA graph (graphs.py) and
+replays it with one launch per step: its decisions (the Verlet rebuild
+test once per DEM substep, the PCG and BiCGStab stop tests once per
+iteration, injection and deletion) are conditional nodes, so a replayed
+step makes no host sync. `make_step_fn` returns the graphed step on the
+card, the counterpart of the reference's jitted one. `CoupledStep` owns
+the constant operators (the smoothing solver and the pressure
+preconditioner) as submodules; its forward is the eager step, which
+reads each decision on the host: the CPU's step, and the oracle the
+graph is held against on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from sedifoam_tpu_torch import fastsolve
+from sedifoam_tpu_torch import fastsolve, graphs, linsolve
 from sedifoam_tpu_torch.config import CloudConfig, DEMConfig, FluidConfig
 from sedifoam_tpu_torch.coupling import cloud as _cloud
 from sedifoam_tpu_torch.coupling import transfer as _transfer
@@ -123,6 +129,7 @@ class CoupledStep(nn.Module):
         device = default_device(device)
         full_f32_precision()
         self.cfg = cfg
+        self.device = device
         self.smoother = fastsolve.smoothing_solver(
             cfg.grid, tuple(float(d) for d in cfg.cloud.smooth_direction),
             dtype, device)
@@ -137,15 +144,54 @@ class CoupledStep(nn.Module):
         return coupled_step(state, self.cfg, self.smoother, self.pprecond)
 
 
+class GraphedStep:
+    """A CoupledStep captured as a CUDA graph (graphs.StepGraph) and
+    replayed once per call: step(state) -> state after one coupled step.
+    One graph per particle capacity: a state of another capacity (the
+    runner's active window grew) frees the graph and captures anew, as
+    jax.jit retraces per shape. The returned state is the graph's own
+    buffers, valid until the next call; a call on it steps it without a
+    host copy. A capture that fails raises."""
+
+    CAPTURES = 0            # captures made in this process, all steps
+
+    def __init__(self, step: CoupledStep):
+        self.step = step
+        self.graph = None
+        self.captures = 0
+        self.capture_seconds = 0.0
+
+    def __call__(self, state: SimState) -> SimState:
+        cap = state.particles.n_capacity
+        if self.graph is None or self.graph.capacity != cap:
+            self.graph = None                    # free the old one first
+            # the capture's warm-up step is thrown away: its solves do
+            # not count
+            saved = linsolve.STATS.snapshot()
+            g = graphs.StepGraph(self.step).capture(state)
+            linsolve.STATS.restore(saved)
+            g.capacity = cap
+            self.graph = g
+            self.captures += 1
+            GraphedStep.CAPTURES += 1
+            self.capture_seconds += g.capture_seconds
+        return self.graph.replay(state)
+
+
 def make_step_fn(cfg: SimConfig, n_sub: int = 1, dtype=torch.float64,
                  device=None):
-    """A function advancing n_sub coupled steps (one CoupledStep)."""
+    """A function advancing n_sub coupled steps: on a CUDA device n_sub
+    replays of the captured step (GraphedStep; the result is a copy, so
+    the function is pure as the reference's jitted one), elsewhere n_sub
+    eager CoupledSteps."""
     step = CoupledStep(cfg, dtype, device)
+    on_card = step.device.type == "cuda"
+    advance = GraphedStep(step) if on_card else step
 
     def run(state: SimState) -> SimState:
         for _ in range(n_sub):
-            state = step(state)
-        return state
+            state = advance(state)
+        return graphs.tree_map(torch.clone, state) if on_card else state
 
     return run
 

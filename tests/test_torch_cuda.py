@@ -12,7 +12,9 @@ they run where JAX is not installed:
   first 2e-4 s;
 - the particle-to-grid scatter repeats bit for bit on the card;
 - so does a run resumed from a checkpoint (the bench case, small, f32,
-  through the kernel): the straight run and the resumed run end equal.
+  through the kernel): the straight run and the resumed run end equal;
+- replays of the captured step (solver.GraphedStep) equal the eager
+  step bit for bit, with no host sync inside a replay.
 """
 
 import os
@@ -102,3 +104,50 @@ def test_resume_bitwise_on_card(tmp_path):
     assert int(sim.state.fluid.step) == int(sim2.state.fluid.step) == 6
     for (name, a), (_, b) in zip(_flatten(sim.state), _flatten(sim2.state)):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [False, True])
+def test_graphed_step_replays_the_eager_step_on_card(sort):
+    """The bench case, small, binned, f32: 6 replays of the captured step
+    (rebuild conds and PCG while loops inside) equal 6 eager steps bit for
+    bit, with the same solver iterations, no host sync inside a replay,
+    and unrelated allocations between the replays."""
+    import warnings
+
+    from sedifoam_tpu_torch import graphs, linsolve
+    from sedifoam_tpu_torch.solver import GraphedStep
+    dev = _card()
+    small = dict(n_particles=2048, nx=8, ny=16, nz=8)
+    cfg = bench_case.build_config(**small, backend="binned",
+                                  sort_on_rebuild=sort)
+    fluid, particles = bench_case.build_state(cfg, small["n_particles"],
+                                              torch.float32, dev)
+    step = CoupledStep(cfg, torch.float32, dev)
+    state = step.initialize(fluid, particles)
+    eager = step(graphs.tree_map(torch.clone, state))
+    linsolve.reset_stats()
+    for _ in range(5):
+        eager = step(eager)
+    stats = dict(linsolve.STATS)
+    graphed = GraphedStep(step)
+    out = graphed(graphs.tree_map(torch.clone, state))   # capture + step 1
+    linsolve.reset_stats()
+    junk = []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(5):
+                junk.append(torch.full((1 << 18,), float("nan"), device=dev))
+                out = graphed(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the mode's first use warns that it is a prototype: no sync)
+    assert not [w for w in seen
+                if "called a synchronizing CUDA operation" in str(w.message)]
+    assert graphed.captures == 1 and graphed.graph.nodes["while"] > 0
+    assert dict(linsolve.STATS) == stats and stats["pcg"][1] > 0
+    for a, b in zip(graphs.flatten(eager), graphs.flatten(out)):
+        assert torch.equal(a, b) or (a.is_floating_point() and torch.equal(
+            a.nan_to_num(7.0), b.nan_to_num(7.0)))
