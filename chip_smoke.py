@@ -17,10 +17,12 @@ which passes or exits nonzero:
    output's scale <= 1e-5 (f32) and 1e-12 (f64), also periodic,
    shearupdate=False and rebuilt at K = 20, and a second launch on a
    clone equal bit for bit; at the clumps' K = 160 and the extras' K =
-   29 in f32 and f64; then at seven shapes (bench f32 and f64, the
-   channel's particles at N = 8,192, K = 16, the injection window's
-   N = 2,048 and 65,536, the clumps' 8,192 x 160 and the extras'
-   131,072 x 29): the kernel's device time (torch.profiler,
+   29 in f32 and f64, and on the transport-suspended and -dune tables
+   (65,536 rows, K = 23, after TRANSPORT_KERNEL_SETTLE settling steps);
+   then at nine shapes (bench f32 and f64, the channel's particles at
+   N = 8,192, K = 16, the injection window's N = 2,048 and 65,536, the
+   clumps' 8,192 x 160, the extras' 131,072 x 29, the suspended and the
+   dune tables' 65,536 x 23): the kernel's device time (torch.profiler,
    100 launches on clones), its bound (bytes each input read once and
    each output written once, counted from the state, over HBM's rate),
    the share of it, the empty kernel's time (the launch floor) and host
@@ -40,8 +42,11 @@ which passes or exits nonzero:
    GraphedStep, the step of Simulation on the card) against the eager
    step (CoupledStep.forward, the oracle) from the same state, GRAPH_STEPS
    steps each, on the bench case, the channel (140x65x60), the clumps
-   (72x50x36, 600 clumps) and the injection column with its active window
-   (a capture per window): the states equal bit for bit (else within
+   (72x50x36, 600 clumps), the injection column with its active window
+   (a capture per window), and the transport-suspended and -dune cases as
+   their validators load them (65,536 rows; the dune's step is five
+   coupling cycles of 16 substeps): the states equal bit for bit (else
+   within
    GRAPH_TOL of scale, the worst field printed), the same PCG and
    BiCGStab solves and iterations, no host sync inside a replay (the
    visits' own reads aside), unrelated allocations between the replays;
@@ -113,14 +118,18 @@ which passes or exits nonzero:
    kernel
    against its plain version on the sorted state (<= 1e-5), and its
    device time on the unsorted and the sorted state;
-14. validate: the irregular and the transport-bedload validator
-   (sedifoam_tpu_torch/validate/) at the full mesh of each (72x50x36
-   coarsened 4x, 140x65x60 coarsened 2x, as the reference scripts
-   default), cut in depth only: 200 of 6,000 steps, and 50 settling +
-   250 of 30,000 forced steps; every gate such a run evaluates must
-   hold (finite, rigid members, frozen rows still, no escapes, alpha
-   bounds), `transporting` and `mpm_band` are printed as not evaluated;
-   nbr_dropped 0, launches = setup + substeps;
+14. validate: the irregular, transport-bedload, transport-suspended
+   and transport-vortex-dune validators (sedifoam_tpu_torch/validate/)
+   at the full mesh and table of each (72x50x36 coarsened 4x, 140x65x60
+   and 140x65x60 coarsened 2x, the dune's two-block 156x26x40 coarsened
+   2x; tables of 8,192, 8,192, 65,536 and 65,536 rows, as the reference
+   scripts default), cut in depth only: 200 of 6,000 steps, 50 settling
+   + 250 of 30,000 forced steps, and 50 + 200 of 2,000 + 15,000 for the
+   two new cases (the dune's cut run marked quick); every gate such a
+   run evaluates must hold (finite, rigid members, frozen rows still, no
+   escapes, alpha bounds, k_audit), the full-run gates are printed as
+   not evaluated; nbr_dropped 0, launches = setup + substeps, the step
+   run as a replayed graph; ms per forced step;
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, graph, runner, inject,
    case, clumps, extras, bench and validate, with the N and K it ran at,
@@ -170,6 +179,13 @@ SORT_TOL = {"pos": 1e-5, "vel": 2e-3, "omega": 2e-2, "fluid": 1e-4}
 VALIDATE_IRREGULAR_STEPS = 200     # of 6,000
 VALIDATE_BEDLOAD_SETTLE = 50       # of 3,000
 VALIDATE_BEDLOAD_STEPS = 250       # of 30,000
+VALIDATE_SUSPENDED_SETTLE = 50     # of 2,000
+VALIDATE_SUSPENDED_STEPS = 200     # of 15,000
+VALIDATE_DUNE_SETTLE = 50          # of 2,000
+VALIDATE_DUNE_STEPS = 200          # of 15,000
+# settling steps before the kernel is measured on the two transport
+# cases' states: their mobile grains land on the frozen layer after ~100
+TRANSPORT_KERNEL_SETTLE = 200
 GRAPH_STEPS = 10          # replays held against as many eager steps
 GRAPH_TOL = 1e-6          # replay vs eager, of scale, where not bit for bit
 GRAPH_PROFILE = 5         # replays in the profile of a graphed step
@@ -669,11 +685,21 @@ def phase_kernel(dev):
         compare_chain(f"f64 {label}", tree_map(
             lambda t: t.double() if t.is_floating_point() else t, q), dem,
             True, 1e-12, may_be_zero=zero)
+    # the transport-suspended and -dune tables (65,536 rows, the loader's
+    # K = 23) after their validators' settling: pair contacts of the
+    # mobile grains on the frozen layer
+    transport = []
+    for which in ("suspended", "dune"):
+        tcfg, tp = transport_kernel_case(dev, which)
+        compare_chain(f"f32 {which} K=23", tp, tcfg.dem, True, 1e-5,
+                      may_be_zero=("wall_shear",))
+        transport.append((f"{which} f32", tp, tcfg.dem))
     shapes = [("bench f32", p, cfg.dem), ("bench f64", p64, cfg.dem),
               ("channel f32", cp, ccfg.dem),
               ("window 2048", window_slice(p, 2048), cfg.dem),
               ("window 65536", window_slice(p, 65536), cfg.dem),
-              ("clumps f32", kp, kcfg.dem), ("extras f32", xp, dem_x)]
+              ("clumps f32", kp, kcfg.dem), ("extras f32", xp, dem_x)] \
+        + transport
     floor = floor_us()
     res["floor_us"] = floor
     res["shapes"] = [measure_chain(label, q, dem, floor)
@@ -701,6 +727,49 @@ def channel_kernel_case(dev):
              f"{cfg.dem.periodic}")
     p = integrate.setup_forces(p, cfg.dem)
     return cfg, integrate.run_dem(p, cfg.dem, KERNEL_SUBSTEPS)
+
+
+def load_transport(dev, which):
+    """The transport-suspended ("suspended") or transport-vortex-dune
+    ("dune") case written at its full mesh and loaded as its validator
+    loads it: binned, f32, K = 8 asked of the loader (which raises it to
+    23), capacity 65,536, the semi-implicit drag, the mesh coarsened 2x
+    (the fluid anew at rest on it). Returns (cfg, fluid, particles)."""
+    import torch
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.fluid.state import init_fluid
+    from sedifoam_tpu_torch.io.case import load_case
+    from sedifoam_tpu_torch.validate import coarsened, semi_implicit, suspended
+    write, full, box = (
+        (cases.write_suspended_case, cases.SUSPENDED_FULL,
+         cases.SUSPENDED_BOX) if which == "suspended" else
+        (cases.write_dune_case, cases.DUNE_FULL, cases.DUNE_BOX))
+    with tempfile.TemporaryDirectory() as tmp:
+        case = write(os.path.join(tmp, which), **full, box=box)
+        cfg, _, particles, _ = load_case(
+            case, backend="binned", neighbor_k=suspended.NEIGHBOR_K,
+            dtype=torch.float32, capacity=suspended.CAPACITY, device=dev)
+    cfg = coarsened(semi_implicit(cfg), 2)
+    if particles.nbr_idx.shape[0] != 23 or cfg.dem.periodic != (
+            True, False, True) or cfg.cloud.sub_cycles * cfg.cloud.sub_steps \
+            != 80:
+        fail(f"{which}: K {particles.nbr_idx.shape[0]}, periodic "
+             f"{cfg.dem.periodic}, {cfg.cloud.sub_cycles} x "
+             f"{cfg.cloud.sub_steps} substeps")
+    return cfg, init_fluid(cfg.grid, dtype=torch.float32,
+                           device=dev), particles
+
+
+def transport_kernel_case(dev, which):
+    """(cfg, particles) of load_transport's case after its validator's
+    settling phase cut to TRANSPORT_KERNEL_SETTLE steps (forcing off,
+    through Simulation)."""
+    from sedifoam_tpu_torch.solver import initialize
+    from sedifoam_tpu_torch.validate import settle
+    cfg, fluid, particles = load_transport(dev, which)
+    state = settle(cfg, initialize(fluid, particles, cfg),
+                   (TRANSPORT_KERNEL_SETTLE - 0.5) * cfg.fluid.dt, dev)
+    return cfg, tree_map(lambda t: t.clone(), state.particles)
 
 
 def load_clumps(dev, counts):
@@ -969,7 +1038,10 @@ def phase_graph(dev):
 
     out = []
     for label, build in (("bench", bench), ("channel", channel),
-                         ("clumps", clumps), ("inject", inject)):
+                         ("clumps", clumps), ("inject", inject),
+                         ("suspended", lambda: load_transport(dev,
+                                                              "suspended")),
+                         ("dune", lambda: load_transport(dev, "dune"))):
         cfg, fluid, particles = build()
         state0 = initialize(fluid, particles, cfg)
         eager = Simulation(cfg, state0, device=dev)
@@ -1987,40 +2059,66 @@ def phase_bench(dev, floor):
 
 
 def phase_validate(dev):
-    """The irregular and the bedload validator through the battery's
-    runners' modules at the full mesh of each (coarsen 4 and 2, the
-    validators' defaults), cut in depth only; every gate that a cut run
-    evaluates must hold."""
+    """The irregular, bedload, suspended and dune validators through the
+    battery's runners' modules at the full mesh of each (coarsen 4, 2, 2
+    and 2, the validators' defaults) and their tables (8,192, 8,192,
+    65,536, 65,536), cut in depth only; every gate that a cut run
+    evaluates must hold. The dune has no averaging window that a cut run
+    falls short of: its cut run is marked quick, which leaves its
+    full-run gates unevaluated."""
     from sedifoam_tpu_torch.dem import fused
-    from sedifoam_tpu_torch.validate import battery, bedload, irregular
+    from sedifoam_tpu_torch.validate import (battery, bedload, dune,
+                                             irregular, suspended)
     out = {}
     dt = 1e-4
+
+    def t(steps):
+        return steps * dt - 0.5 * dt
+
     specs = (
         ("irregular", lambda: irregular.run(
-            t_end=VALIDATE_IRREGULAR_STEPS * dt - 0.5 * dt, device=dev),
-         VALIDATE_IRREGULAR_STEPS, 0, 160,
+            t_end=t(VALIDATE_IRREGULAR_STEPS), device=dev),
+         VALIDATE_IRREGULAR_STEPS, 0, 160, 50,
          f"t_end 0.6 s (6,000 steps) cut to {VALIDATE_IRREGULAR_STEPS} "
          "steps"),
         ("transport-bedload", lambda: bedload.run(
-            t_end=VALIDATE_BEDLOAD_STEPS * dt - 0.5 * dt,
-            t_settle=VALIDATE_BEDLOAD_SETTLE * dt - 0.5 * dt, device=dev),
-         VALIDATE_BEDLOAD_STEPS,
-         VALIDATE_BEDLOAD_SETTLE, 16,
+            t_end=t(VALIDATE_BEDLOAD_STEPS),
+            t_settle=t(VALIDATE_BEDLOAD_SETTLE), device=dev),
+         VALIDATE_BEDLOAD_STEPS, VALIDATE_BEDLOAD_SETTLE, 16, 40,
          f"0.3 s settling + 3.0 s (33,000 steps) cut to "
-         f"{VALIDATE_BEDLOAD_SETTLE} + {VALIDATE_BEDLOAD_STEPS} steps"))
-    for name, fn, steps, settle, K, cut in specs:
+         f"{VALIDATE_BEDLOAD_SETTLE} + {VALIDATE_BEDLOAD_STEPS} steps"),
+        ("transport-suspended", lambda: suspended.run(
+            t_end=t(VALIDATE_SUSPENDED_STEPS),
+            t_settle=t(VALIDATE_SUSPENDED_SETTLE), device=dev),
+         VALIDATE_SUSPENDED_STEPS, VALIDATE_SUSPENDED_SETTLE, 23, 80,
+         f"0.2 s settling + 1.5 s (17,000 steps) cut to "
+         f"{VALIDATE_SUSPENDED_SETTLE} + {VALIDATE_SUSPENDED_STEPS} steps"),
+        ("transport-vortex-dune", lambda: dune.run(
+            t_end=t(VALIDATE_DUNE_STEPS), t_settle=t(VALIDATE_DUNE_SETTLE),
+            quick=True, device=dev),
+         VALIDATE_DUNE_STEPS, VALIDATE_DUNE_SETTLE, 23, 80,
+         f"0.2 s settling + 1.5 s (17,000 steps) cut to "
+         f"{VALIDATE_DUNE_SETTLE} + {VALIDATE_DUNE_STEPS} steps, 5 coupling "
+         "cycles a step"))
+    for name, fn, steps, settle, K, sub, cut in specs:
         fused.reset_launches()
         caps = captures()
         t0 = time.perf_counter()
         res = fn()
         wall = time.perf_counter() - t0
         launches, by_n = fused.launches(), dict(fused.launch_sizes())
+        in_graphs = fused.graph_launches()
         caps = captures() - caps
         say(f"validate [{name}]: {cut}; {wall:.1f} s in all, "
             f"{res['wall_time_s'] / steps * 1e3:.1f} ms/step; "
             + json.dumps(res))
         say(f"validate [{name}]: gates evaluated {sorted(res['gates'])}, "
             f"not evaluated at this length {res['not_evaluated']}")
+        graphed = caps > 0 and in_graphs > 0
+        say(f"validate [{name}]: {res['wall_time_s'] / steps * 1e3:.3f} ms "
+            f"per forced step (the forced run's wall time incl. its capture"
+            f"); the step ran as a replayed graph: {graphed} ({caps} "
+            f"captures, {in_graphs} contact_chain launches inside replays)")
         if res["steps"] != steps + settle:
             fail(f"validate {name}: ran {res['steps']} steps, not "
                  f"{steps + settle}")
@@ -2029,10 +2127,11 @@ def phase_validate(dev):
         if res["nbr_dropped"] != 0:
             fail(f"validate {name}: neighbor audit dropped "
                  f"{res['nbr_dropped']} in-ring partners")
+        if not graphed:
+            fail(f"validate {name}: the step did not run as a replayed graph")
         # 1 setup, the steps, a warm-up step per capture (the settling
         # run and the forced run capture one each) and timing_split's
         # 1 + 5 evolves
-        sub = 50 if name == "irregular" else 40
         expected = 1 + (steps + settle + caps + 6) * sub
         say(f"validate [{name}]: contact_chain launches {launches} (1 setup"
             f" + ({steps + settle} steps + {caps} capture warm-ups + 6 "

@@ -20,7 +20,9 @@ diameter, so they do not collide.
 
 ``write_xiaocase3`` writes the dictionaries that ``xiaocase3``
 transcribes; loading the directory gives the same case.
-``write_channel_case`` writes a transport-bedload channel and
+``write_channel_case`` writes a transport-bedload channel,
+``write_suspended_case`` and ``write_dune_case`` the transport-suspended
+and transport-vortex-dune channels of 0.5 mm sand, and
 ``write_irregular_case`` the irregular-grain channel of rigid trimer
 clumps (see their docstrings for what they are built from and which
 values they choose). ``extras_bed`` is the bench lattice with cohesion
@@ -409,43 +411,52 @@ def write_channel_case(case_dir: str, counts=(140, 65, 60), layers=6,
     """
     box = CHANNEL_BOX
     nx, ny, nz = counts
-    _foam(case_dir, "constant/polyMesh/blockMeshDict", "dictionary", f"""
-convertToMeters 1;
-vertices ( (0 0 0) ({box[1]} 0 0) ({box[1]} {box[3]} 0) (0 {box[3]} 0)
-           (0 0 {box[5]}) ({box[1]} 0 {box[5]}) ({box[1]} {box[3]} {box[5]})
-           (0 {box[3]} {box[5]}) );
-blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 10 1) );
-edges ();
-boundary
-(
-    bottom {{ type wall; faces ( (1 5 4 0) ); }}
-    top    {{ type wall; faces ( (3 7 6 2) ); }}
-    left   {{ type cyclic; neighbourPatch right; faces ( (0 4 7 3) ); }}
-    right  {{ type cyclic; neighbourPatch left;  faces ( (2 6 5 1) ); }}
-    front  {{ type cyclic; neighbourPatch back;  faces ( (0 1 2 3) ); }}
-    back   {{ type cyclic; neighbourPatch front; faces ( (4 5 6 7) ); }}
-);
-""")
+    mesh = _y_stacked_mesh(box, nx, nz, [(box[3], ny, 10)])
+    L = box[1], box[3], box[5]
+    _transport_case(
+        case_dir, box, mesh, top_wall=False, end_time=3, ubar=0.8,
+        cloud="dragModel ErgunWenYu;\nsubCycles 1;\n",
+        gran="5000 NULL 11200 NULL 0.1 0", dem_dt="2.5e-6",
+        rows=channel_bed(d, layers, frozen_layers, seed, overlap),
+        probes=[(0.5 * L[0], 0.5 * L[1], 0.5 * L[2]),
+                (0.5 * L[0], 0.9 * L[1], 0.5 * L[2])])
+    return case_dir
+
+
+def _transport_case(case_dir, box, mesh, top_wall, end_time, ubar, cloud,
+                    gran, dem_dt, rows, probes):
+    """The dictionaries the transport channels share, written into
+    case_dir: `mesh` (a blockMeshDict body with patches bottom, top,
+    left/right and front/back), cyclic x/z, a no-slip bottom and a top
+    that is a no-slip wall (`top_wall`) or slip; the fluid at rest; deltaT
+    1e-4 to `end_time`, `probes`; PCG tolerance 1e-6 with 2 PISO
+    correctors; water (rhob 1000, nub 1e-6) with 2650 kg/m^3 grains,
+    Ubar (`ubar` 0 0), gravity 9.81; kEqn LES; `cloud` as
+    cloudProperties; an in.lammps with `boundary p f p`, the
+    gran/hooke/history pair and y-wall line `gran`, timestep `dem_dt`,
+    gravity, `fix fdrag 1000`, a `freeze` fix on the type-2 group; the
+    data file of `rows`."""
+    _foam(case_dir, "constant/polyMesh/blockMeshDict", "dictionary", mesh)
     cyc = {p: "type cyclic;" for p in ("left", "right", "front", "back")}
     zg = "type zeroGradient;"
+    wall_ua = "type fixedValue; value $internalField;"
     _field(case_dir, "alpha", "volScalarField", _DIMS["alpha"], "uniform 0",
            {"bottom": zg, "top": zg, **cyc})
     _field(case_dir, "p", "volScalarField", _DIMS["p"], "uniform 0",
            {"bottom": zg, "top": zg, **cyc})
     _field(case_dir, "Ub", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
            {"bottom": "type fixedValue; value uniform (0 0 0);",
-            "top": "type slip;", **cyc})
+            "top": "type fixedValue; value uniform (0 0 0);" if top_wall
+            else "type slip;", **cyc})
     _field(case_dir, "Ua", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
-           {"bottom": "type fixedValue; value $internalField;",
-            "top": "type slip;", **cyc})
-    L = box[1], box[3], box[5]
-    _foam(case_dir, "system/controlDict", "dictionary", """
+           {"bottom": wall_ua, "top": wall_ua if top_wall else "type slip;",
+            **cyc})
+    _foam(case_dir, "system/controlDict", "dictionary", f"""
 startTime 0;
-endTime 3;
+endTime {end_time};
 deltaT 1e-4;
 writeInterval 0.1;
-""" + _probes([(0.5 * L[0], 0.5 * L[1], 0.5 * L[2]),
-               (0.5 * L[0], 0.9 * L[1], 0.5 * L[2])]))
+""" + _probes(probes))
     _foam(case_dir, "system/fvSolution", "dictionary", """
 solvers
 {
@@ -453,11 +464,11 @@ solvers
 }
 PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
 """)
-    _foam(case_dir, "constant/transportProperties", "dictionary", """
+    _foam(case_dir, "constant/transportProperties", "dictionary", f"""
 rhoa rhoa [1 -3 0 0 0 0 0] 2650;
 rhob rhob [1 -3 0 0 0 0 0] 1000;
 nub nub [0 2 -1 0 0 0 0] 1e-06;
-Ubar Ubar [0 1 -1 0 0 0 0] (0.8 0 0);
+Ubar Ubar [0 1 -1 0 0 0 0] ({ubar} 0 0);
 """)
     _foam(case_dir, "constant/environmentalProperties", "dictionary",
           "g g [0 1 -2 0 0 0 0] (0 -9.81 0);\n")
@@ -465,28 +476,247 @@ Ubar Ubar [0 1 -1 0 0 0 0] (0.8 0 0);
 simulationType LES;
 LES { LESModel kEqn; turbulence on; delta cubeRootVol; }
 """)
-    _foam(case_dir, "constant/cloudProperties", "dictionary", """
-dragModel ErgunWenYu;
-subCycles 1;
-""")
+    _foam(case_dir, "constant/cloudProperties", "dictionary", "\n" + cloud)
     _write(os.path.join(case_dir, "in.lammps"), f"""\
 atom_style      sphere
 boundary        p f p
 newton          off
 read_data       In_initial.in
-pair_style      gran/hooke/history 5000 NULL 11200 NULL 0.1 0
+pair_style      gran/hooke/history {gran}
 pair_coeff      * *
-timestep        2.5e-6
+timestep        {dem_dt}
 group           bed type 2
 fix             1 all nve/sphere
 fix             2 all gravity 9.81 vector 0 -1 0
 fix             3 all fdrag 1000
 fix             4 bed freeze
-fix             ywalls all wall/gran 5000 NULL 11200 NULL 0.1 0 yplane {box[2]} {box[3]}
+fix             ywalls all wall/gran {gran} yplane {box[2]} {box[3]}
 """)
-    _data_file(os.path.join(case_dir, "In_initial.in"),
-               channel_bed(d, layers, frozen_layers, seed, overlap), box, 2)
+    _data_file(os.path.join(case_dir, "In_initial.in"), rows, box, 2)
+
+
+# the transport-suspended box (scripts/validate_suspended.py:42, the
+# bedload box) and the transport-vortex-dune box
+# (scripts/validate_dune.py:37)
+SUSPENDED_BOX = CHANNEL_BOX
+SUSPENDED_FULL = dict(counts=(140, 65, 60), layers=2)
+DUNE_BOX = (0.0, 0.155885, 0.0, 0.0167, 0.0, 0.040001)
+DUNE_FULL = dict(counts=(156, 26, 40), bed_cells=8, crest_layers=6)
+DUNE_BED_TOP = 0.004          # the lower y-block: the bed and the hump
+SAND_D = 0.5e-3               # both cases' grain (d = 0.5 mm, rhoa 2650)
+# gran/hooke/history kn kt gamman gammat xmu dampflag of both cases: the
+# dune's recorded kn 200 and xmu 0.4 (its in.lammps:15), the rest as
+# write_irregular_case chose
+SAND_GRAN = "200 NULL 50000 NULL 0.4 0"
+SAND_DEM_DT = "1.25e-6"
+SAND_CLOUD = "diffusionBandWidth 0.003;\n"
+
+
+def suspended_bed(d=SAND_D, n_layers=2, frozen_layers=1, seed=11,
+                  box=SUSPENDED_BOX):
+    """scripts/validate_suspended.py's bed (`synth_bed`): data-file rows
+    (id type d rho x y z) of a jittered simple-cubic bed over the box's
+    x-z extent, the bottom `frozen_layers` dense and of type 2, the mobile
+    layers above at half the density in x and z (pitch 2d). At the full
+    box and 2 layers: 27,260 frozen + 6,786 mobile = 34,046 grains."""
+    rng = np.random.default_rng(seed)
+    r = 0.5 * d
+    pitch = 2.05 * r
+    nx = int((box[1] - box[0] - d) / pitch)
+    nz = int((box[5] - box[4] - d) / pitch)
+    rows = []
+    tag = 1
+    for layer in range(n_layers):
+        y = box[2] + r + layer * pitch
+        frozen = layer < frozen_layers
+        mx, mz = (nx, nz) if frozen else (nx // 2, nz // 2)
+        for i in range(mx):
+            for k in range(mz):
+                x = box[0] + r + (i + 0.5) * (box[1] - box[0] - d) / mx
+                z = box[4] + r + (k + 0.5) * (box[5] - box[4] - d) / mz
+                jx, jz = rng.uniform(-0.02 * r, 0.02 * r, 2)
+                t = 2 if frozen else 1
+                rows.append(f"{tag} {t} {d} 2650.0 "
+                            f"{x + jx:.8f} {y:.8f} {z + jz:.8f}")
+                tag += 1
+    return rows
+
+
+def write_suspended_case(case_dir: str, counts=(140, 65, 60), layers=2,
+                         box=SUSPENDED_BOX, d=SAND_D) -> str:
+    """Write the transport-suspended channel (the suspended-load case of
+    the SediFoam paper, Sun & Xiao 2016, arXiv:1601.03801) as a case
+    directory. Returns case_dir.
+
+    From what the repo records (scripts/validate_suspended.py):
+    - the 0.12125 x 0.04 x 0.06001 m box (CHANNEL_BOX), x and z cyclic,
+      walls at both y faces ("ff walls in y": the top is a no-slip wall,
+      not bedload's slip), `boundary p f p`;
+    - water, Ubar (0.8 0 0), SyamlalOBrien drag, gran/hooke/history DEM,
+      a `freeze` fix on the type-2 group;
+    - the bed: suspended_bed (d = 0.5 mm, rhoa 2650, seed 11, one dense
+      frozen layer and `layers - 1` sparse mobile ones; 34,046 grains at
+      2 layers).
+
+    Chosen here (the repo does not record them):
+    - the mesh: the bedload mesh of the same box, 140 x 65 x 60 with
+      `simpleGrading (1 10 1)` (`counts`);
+    - the pair and wall line `gran/hooke/history 200 NULL 50000 NULL 0.4
+      0` (the dune's recorded kn and xmu, the rest as
+      write_irregular_case chose);
+    - DEM timestep 1.25e-6 s, 1/52 of the Hooke contact time
+      pi*sqrt(m_eff/kn) = 6.54e-5 s at d = 0.5 mm, and deltaT 1e-4 s: 80
+      substeps;
+    - kEqn LES, PCG tolerance 1e-6 with 2 PISO correctors, `fix fdrag`
+      with carrier density 1000, diffusionBandWidth 3 mm (six grains; the
+      loader's 6 mm default is twelve), the fluid at rest, endTime 1.5 s
+      (the validator's t_end), as write_channel_case chose the rest.
+
+    `box`, `counts` and `layers` shrink the case (tests); the validator
+    reads the same box for the bed area and the depth.
+    """
+    nx, ny, nz = counts
+    mesh = _y_stacked_mesh(box, nx, nz, [(box[3], ny, 10)])
+    L = box[1] - box[0], box[3] - box[2], box[5] - box[4]
+    _transport_case(
+        case_dir, box, mesh, top_wall=True, end_time=1.5, ubar=0.8,
+        cloud="dragModel SyamlalOBrien;\nsubCycles 1;\n" + SAND_CLOUD,
+        gran=SAND_GRAN, dem_dt=SAND_DEM_DT,
+        rows=suspended_bed(d, layers, box=box),
+        probes=[(box[0] + 0.5 * L[0], box[2] + f * L[1], box[4] + 0.5 * L[2])
+                for f in (0.25, 0.5)])
     return case_dir
+
+
+def dune_bed(d=SAND_D, crest_layers=6, sigma_frac=0.10, seed=13,
+             box=DUNE_BOX):
+    """scripts/validate_dune.py's bed (`synth_dune`): a frozen type-2
+    base layer over the whole channel and a mobile Gaussian hump of
+    `crest_layers` layers at its crest, sigma = sigma_frac Lx, centred at
+    x0 = 0.4 Lx (jittered simple-cubic, pitch 2.05 r). Returns (data-file
+    rows, x0). At the full box: 58,212 grains, x0 = 0.062354 m."""
+    rng = np.random.default_rng(seed)
+    r = 0.5 * d
+    pitch = 2.05 * r
+    Lx = box[1] - box[0]
+    nx = int((Lx - d) / pitch)
+    nz = int((box[5] - box[4] - d) / pitch)
+    x0 = box[0] + 0.4 * Lx
+    sigma = sigma_frac * Lx
+    rows = []
+    tag = 1
+    for i in range(nx):
+        x = box[0] + r + (i + 0.5) * (Lx - d) / nx
+        n_here = 1 + int(round(crest_layers
+                               * np.exp(-0.5 * ((x - x0) / sigma) ** 2)))
+        for layer in range(n_here):
+            y = box[2] + r + layer * pitch
+            t = 2 if layer == 0 else 1
+            for k in range(nz):
+                z = box[4] + r + (k + 0.5) * (box[5] - box[4] - d) / nz
+                jx, jz = rng.uniform(-0.02 * r, 0.02 * r, 2)
+                rows.append(f"{tag} {t} {d} 2650.0 "
+                            f"{x + jx:.8f} {y:.8f} {z + jz:.8f}")
+                tag += 1
+    return rows, x0
+
+
+def write_dune_case(case_dir: str, counts=(156, 26, 40), bed_cells=8,
+                    crest_layers=6, box=DUNE_BOX, d=SAND_D) -> str:
+    """Write the transport-vortex-dune channel (the current-induced dune
+    case of Sun & Xiao, arXiv:1510.07201) as a case directory. Returns
+    case_dir.
+
+    From what the repo records (scripts/validate_dune.py,
+    io/case.read_block_mesh):
+    - the 0.155885 x 0.0167 x 0.040001 m box, x and z cyclic, meshed as
+      two y-stacked hex blocks;
+    - water, Ubar (0.34 0 0), SyamlalOBrien drag, `subCycles 5`;
+    - `gran/hooke/history` with kn 200 and xmu 0.4, a frozen type-2 base;
+    - the bed: dune_bed (d = 0.5 mm, seed 13, a frozen base layer and a
+      mobile Gaussian hump of `crest_layers` crest layers, sigma 0.1 Lx,
+      centred at 0.4 Lx; 58,212 grains at the full box).
+
+    Chosen here (the repo does not record them):
+    - the mesh: `counts` = (156, 26, 40) cells of about 1 mm in x and z;
+      in y a lower block from the floor to 4 mm (above the hump's 3.6 mm
+      crest) of `bed_cells` = 8 uniform 0.5 mm cells, and an upper block
+      of the other 18 cells to the top, `simpleGrading (1 2 1)` (0.49 to
+      0.98 mm, so the cell height runs on across the joint);
+    - the pair and wall line `200 NULL 50000 NULL 0.4 0` (kt, gamman,
+      gammat and the damping flag as write_irregular_case chose);
+    - DEM timestep 1.25e-6 s (1/52 of the Hooke contact time 6.54e-5 s)
+      and deltaT 1e-4 s: 80 substeps, 16 in each of the 5 coupling cycles
+      (solver.adjust_dem_timestep);
+    - a slip top (an open channel), a no-slip bottom, y walls for the
+      grains at the box faces; kEqn LES, PCG tolerance 1e-6 with 2 PISO
+      correctors, `fix fdrag` with carrier density 1000,
+      diffusionBandWidth 3 mm, the fluid at rest, endTime 1.5 s (the
+      validator's t_end; the reference controlDict's 50 s of morphology
+      is beyond a validation run).
+
+    `box`, `counts`, `bed_cells` and `crest_layers` shrink the case
+    (tests).
+    """
+    nx, ny, nz = counts
+    mesh = _y_stacked_mesh(box, nx, nz, [(box[2] + DUNE_BED_TOP, bed_cells, 1),
+                                         (box[3], ny - bed_cells, 2)])
+    L = box[1] - box[0], box[3] - box[2], box[5] - box[4]
+    rows, _ = dune_bed(d, crest_layers, box=box)
+    _transport_case(
+        case_dir, box, mesh, top_wall=False, end_time=1.5, ubar=0.34,
+        cloud="dragModel SyamlalOBrien;\nsubCycles 5;\n" + SAND_CLOUD,
+        gran=SAND_GRAN, dem_dt=SAND_DEM_DT, rows=rows,
+        probes=[(box[0] + f * L[0], box[2] + 0.5 * L[1], box[4] + 0.5 * L[2])
+                for f in (0.4, 0.8)])
+    return case_dir
+
+
+def _y_stacked_mesh(box, nx, nz, y_blocks):
+    """A blockMeshDict body: the box as hex blocks stacked in y, one per
+    (y_top, cells, y grading) of `y_blocks` from the floor up, nx and nz
+    cells each; patches bottom, top (walls) and left/right, front/back
+    (cyclic), the side patches one face per block."""
+    X, Z = box[1], box[5]
+    levels = [box[2]] + [b[0] for b in y_blocks]
+    verts = " ".join(f"({x} {y} {z})" for y in levels
+                     for x, z in ((box[0], box[4]), (X, box[4]), (X, Z),
+                                  (box[0], Z)))
+
+    def v(j):        # (x0 z0, x1 z0, x1 z1, x0 z1) at level j
+        return 4 * j, 4 * j + 1, 4 * j + 2, 4 * j + 3
+
+    hexes, sides = [], {"left": [], "right": [], "front": [], "back": []}
+    for j, (_, ny, grading) in enumerate(y_blocks):
+        a, b, c, d = v(j)
+        A, B, C, D = v(j + 1)
+        hexes.append(f"    hex ({a} {b} {B} {A} {d} {c} {C} {D}) "
+                     f"({nx} {ny} {nz}) simpleGrading (1 {grading} 1)")
+        sides["left"].append(f"({a} {d} {D} {A})")
+        sides["right"].append(f"({B} {C} {c} {b})")
+        sides["front"].append(f"({a} {b} {B} {A})")
+        sides["back"].append(f"({d} {c} {C} {D})")
+    left, right, front, back = (" ".join(sides[k]) for k in sides)
+    a, b, c, d = v(0)
+    A, B, C, D = v(len(y_blocks))
+    return f"""
+convertToMeters 1;
+vertices ( {verts} );
+blocks
+(
+{chr(10).join(hexes)}
+);
+edges ();
+boundary
+(
+    bottom {{ type wall; faces ( ({b} {c} {d} {a}) ); }}
+    top    {{ type wall; faces ( ({A} {D} {C} {B}) ); }}
+    left   {{ type cyclic; neighbourPatch right; faces ( {left} ); }}
+    right  {{ type cyclic; neighbourPatch left;  faces ( {right} ); }}
+    front  {{ type cyclic; neighbourPatch back;  faces ( {front} ); }}
+    back   {{ type cyclic; neighbourPatch front; faces ( {back} ); }}
+);
+"""
 
 
 # the irregular case's box and grain (scripts/validate_irregular.py:42-44)
@@ -600,23 +830,8 @@ def write_irregular_case(case_dir: str, n_clumps=600, counts=(72, 50, 36),
     """
     box, D = IRREGULAR_BOX, IRREGULAR_D
     nx, ny, nz = counts
-    _foam(case_dir, "constant/polyMesh/blockMeshDict", "dictionary", f"""
-convertToMeters 1;
-vertices ( (0 0 0) ({box[1]} 0 0) ({box[1]} {box[3]} 0) (0 {box[3]} 0)
-           (0 0 {box[5]}) ({box[1]} 0 {box[5]}) ({box[1]} {box[3]} {box[5]})
-           (0 {box[3]} {box[5]}) );
-blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 10 1) );
-edges ();
-boundary
-(
-    bottom {{ type wall; faces ( (1 5 4 0) ); }}
-    top    {{ type wall; faces ( (3 7 6 2) ); }}
-    left   {{ type cyclic; neighbourPatch right; faces ( (0 4 7 3) ); }}
-    right  {{ type cyclic; neighbourPatch left;  faces ( (2 6 5 1) ); }}
-    front  {{ type cyclic; neighbourPatch back;  faces ( (0 1 2 3) ); }}
-    back   {{ type cyclic; neighbourPatch front; faces ( (4 5 6 7) ); }}
-);
-""")
+    _foam(case_dir, "constant/polyMesh/blockMeshDict", "dictionary",
+          _y_stacked_mesh(box, nx, nz, [(box[3], ny, 10)]))
     cyc = {p: "type cyclic;" for p in ("left", "right", "front", "back")}
     zg = "type zeroGradient;"
     _field(case_dir, "alpha", "volScalarField", _DIMS["alpha"], "uniform 0",

@@ -1,5 +1,6 @@
 """Case-level validators of the port (the counterparts of
-``scripts/validate_irregular.py``, ``scripts/validate_bedload.py`` and
+``scripts/validate_irregular.py``, ``validate_bedload.py``,
+``validate_suspended.py``, ``validate_dune.py`` and
 ``scripts/run_all_cases.py``).
 
 Each module runs with ``python -m`` and has a ``main(argv)`` that prints
@@ -37,24 +38,49 @@ def semi_implicit(cfg):
         cfg.cloud, semi_implicit_drag=True))
 
 
-def load(case_dir, coarsen, device, capacity=8192):
+def load(case_dir, coarsen, device, capacity=8192, neighbor_k=None):
     """(cfg, initialized state) of a written case directory, loaded as
     the reference validators load theirs: binned DEM, f32, capacity
-    8,192, the semi-implicit drag, the mesh coarsened `coarsen` times
-    (the fluid then starts anew, at rest, on the coarse mesh)."""
+    8,192 (the transport-suspended and -dune scripts: 65,536), the
+    loader's K or `neighbor_k` (those two scripts pass 8, which the
+    loader raises to what its ring needs), the semi-implicit drag, the
+    mesh coarsened `coarsen` times (the fluid then starts anew, at rest,
+    on the coarse mesh)."""
     import torch
 
     from sedifoam_tpu_torch.fluid.state import init_fluid
     from sedifoam_tpu_torch.io.case import load_case
     from sedifoam_tpu_torch.solver import initialize
     cfg, fluid, particles, _ = load_case(
-        case_dir, backend="binned", dtype=torch.float32, capacity=capacity,
-        device=device)
+        case_dir, backend="binned", neighbor_k=neighbor_k,
+        dtype=torch.float32, capacity=capacity, device=device)
     cfg = semi_implicit(cfg)
     if coarsen > 1:
         cfg = coarsened(cfg, coarsen)
         fluid = init_fluid(cfg.grid, dtype=torch.float32, device=device)
     return cfg, initialize(fluid, particles, cfg)
+
+
+def settle(cfg, state, t_settle, device, steps_per_host_visit=25):
+    """The state after t_settle seconds with the channel forcing off, its
+    clock set back to 0 (the transport validators' settling phase: the
+    Ubar controller applies its whole velocity correction in one step,
+    and a loose bed under that kick diverges)."""
+    import torch
+
+    from sedifoam_tpu_torch.config import ChannelForcing
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    if t_settle <= 0:
+        return state
+    cfg_settle = dataclasses.replace(cfg, fluid=dataclasses.replace(
+        cfg.fluid, forcing=ChannelForcing(mode="none")))
+    sim0 = Simulation(cfg_settle, state,
+                      steps_per_host_visit=steps_per_host_visit,
+                      device=device)
+    sim0.run(t_settle)
+    state = sim0.state
+    return state._replace(fluid=state.fluid._replace(
+        time=torch.zeros_like(state.fluid.time)))
 
 
 def run_until(sim, t_end, max_wall=None, chunk_steps=250, **run_kw) -> bool:

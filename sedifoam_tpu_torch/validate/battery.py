@@ -6,8 +6,9 @@ each judged by its own gates, into results/torch_report.json.
         [--quick] [--report FILE] [--device cpu]
 
 Cases: xiaocase3 (the one-particle settling curve against
-tests/golden_data/xiaoCase3.dat, dense DEM, f64), irregular and
-transport-bedload (their validators' `passed`). --quick shortens the
+tests/golden_data/xiaoCase3.dat, dense DEM, f64), irregular,
+transport-bedload, transport-suspended and transport-vortex-dune (their
+validators' `passed`). --quick shortens the
 runs (smoke mode; the report is marked quick). The cases whose input
 files the repository does not hold are listed in the report as
 `"not_run": "<what is missing>"`: not passed, not left out.
@@ -48,11 +49,10 @@ NOT_RUN = {
     "jetFlow": "the O-grid case directory cases/example-cases/jetFlow",
     "BL24-TH1": "case directory and In_initial.in of "
                 "cases/example-cases/BL24-TH1",
-    "transport-suspended": "no case writer yet (cases/example-cases/"
-                           "transport-suspended)",
-    "transport-vortex-dune": "no case writer yet (cases/example-cases/"
-                             "transport-vortex-dune)",
 }
+# the cases judged by their validator's `passed`
+VALIDATED = ("irregular", "transport-bedload", "transport-suspended",
+             "transport-vortex-dune")
 
 
 def run_xiaocase3(device=None, quick=False) -> dict:
@@ -108,7 +108,7 @@ def judge(name, data, quick=False) -> bool:
                 ok &= abs(data["v_end"] - data["v_end_benchmark"]) \
                     < 0.05 * 0.05
             return bool(ok)
-        if name in ("irregular", "transport-bedload"):
+        if name in VALIDATED:
             return bool(data.get("passed"))
     except (TypeError, KeyError):
         return False
@@ -117,7 +117,7 @@ def judge(name, data, quick=False) -> bool:
 
 def case_runners(device, quick):
     """{name: function returning the case's result dict}."""
-    from sedifoam_tpu_torch.validate import bedload, irregular
+    from sedifoam_tpu_torch.validate import bedload, dune, irregular, suspended
 
     def validator(module):
         kw = dict(module.QUICK, quick=True) if quick else {}
@@ -127,6 +127,8 @@ def case_runners(device, quick):
         "xiaocase3": lambda: run_xiaocase3(device, quick),
         "irregular": validator(irregular),
         "transport-bedload": validator(bedload),
+        "transport-suspended": validator(suspended),
+        "transport-vortex-dune": validator(dune),
     }
 
 

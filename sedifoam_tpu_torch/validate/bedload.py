@@ -39,7 +39,6 @@ Prints one JSON line.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import os
@@ -57,26 +56,6 @@ def bed_area() -> float:
     from sedifoam_tpu_torch import cases
     box = cases.CHANNEL_BOX
     return (box[1] - box[0]) * (box[5] - box[4])
-
-
-def settle(cfg, state, t_settle, device, steps_per_host_visit=25):
-    """The state after t_settle seconds with the channel forcing off, its
-    clock set back to 0."""
-    import torch
-
-    from sedifoam_tpu_torch.config import ChannelForcing
-    from sedifoam_tpu_torch.runtime.runner import Simulation
-    if t_settle <= 0:
-        return state
-    cfg_settle = dataclasses.replace(cfg, fluid=dataclasses.replace(
-        cfg.fluid, forcing=ChannelForcing(mode="none")))
-    sim0 = Simulation(cfg_settle, state,
-                      steps_per_host_visit=steps_per_host_visit,
-                      device=device)
-    sim0.run(t_settle)
-    state = sim0.state
-    return state._replace(fluid=state.fluid._replace(
-        time=torch.zeros_like(state.fluid.time)))
 
 
 def sampler(cfg, samples):
@@ -124,7 +103,7 @@ def run(t_end=3.0, t_avg_start=1.5, t_settle=0.3, coarsen=2, layers=6,
 
     from sedifoam_tpu_torch import cases, default_device
     from sedifoam_tpu_torch.runtime.runner import Simulation
-    from sedifoam_tpu_torch.validate import finite, load, run_until
+    from sedifoam_tpu_torch.validate import finite, load, run_until, settle
 
     device = default_device(device)
     counts = tuple(counts or cases.CHANNEL_FULL["counts"])
