@@ -17,12 +17,16 @@ which passes or exits nonzero:
    output's scale <= 1e-5 (f32) and 1e-12 (f64), also periodic,
    shearupdate=False and rebuilt at K = 20, and a second launch on a
    clone equal bit for bit; at the clumps' K = 160 and the extras' K =
-   29 in f32 and f64, and on the transport-suspended and -dune tables
-   (65,536 rows, K = 23, after TRANSPORT_KERNEL_SETTLE settling steps);
-   then at nine shapes (bench f32 and f64, the channel's particles at
+   29 in f32 and f64, on the transport-suspended and -dune tables
+   (65,536 rows, K = 23, after TRANSPORT_KERNEL_SETTLE settling steps),
+   and on jetFlow's table at JETFLOW_KERNEL_STEPS steps of one run (K =
+   16, three wall planes, the window grown to 4,096 rows, then to
+   16,384, the full run's largest window) in f32 and f64;
+   then at eleven shapes (bench f32 and f64, the channel's particles at
    N = 8,192, K = 16, the injection window's N = 2,048 and 65,536, the
    clumps' 8,192 x 160, the extras' 131,072 x 29, the suspended and the
-   dune tables' 65,536 x 23): the kernel's device time (torch.profiler,
+   dune tables' 65,536 x 23, jetFlow's 4,096 and 16,384 x 16 x 3): the
+   kernel's device time (torch.profiler,
    100 launches on clones), its bound (bytes each input read once and
    each output written once, counted from the state, over HBM's rate),
    the share of it, the empty kernel's time (the launch floor) and host
@@ -43,9 +47,12 @@ which passes or exits nonzero:
    step (CoupledStep.forward, the oracle) from the same state, GRAPH_STEPS
    steps each, on the bench case, the channel (140x65x60), the clumps
    (72x50x36, 600 clumps), the injection column with its active window
-   (a capture per window), and the transport-suspended and -dune cases as
+   (a capture per window), the transport-suspended and -dune cases as
    their validators load them (65,536 rows; the dune's step is five
-   coupling cycles of 16 substeps): the states equal bit for bit (else
+   coupling cycles of 16 substeps), and jetFlow at its full 56x120x56
+   O-grid (200 substeps a step, the window of 2,048 rows) from the state
+   after JETFLOW_GRAPH_PRERUN steps, an add among the compared steps:
+   the states equal bit for bit (else
    within
    GRAPH_TOL of scale, the worst field printed), the same PCG and
    BiCGStab solves and iterations, no host sync inside a replay (the
@@ -82,6 +89,13 @@ which passes or exits nonzero:
    the kernel against one through the plain chain (<= 1e-3 of scale);
    ms/step, the phase split, host syncs, PCG/BiCGStab iterations and the
    Ubar compensated sums' time;
+8b. case, jetFlow: cases.write_jetflow_case at its full O-grid, loaded
+   as its validator loads it (embed_ogrid, binned, f32, 65,536 rows):
+   the embedded 56x120x56 grid (box, uniform column, mirrored graded
+   sides), the inlet disc's covered area within 2e-2 of pi r^2, the BC
+   kinds (the RegionPatchBC inlet, inletOutlet/fixedValue top, slip
+   floor), kEqn, the frozen type 2, adding and deleting, 36 add sites,
+   200 substeps, K = 16, three wall planes; seconds to write and load;
 9. entry: Simulation.from_case on the written xiaocase3 (dense, f64, 5
    steps) equal to cases.xiaocase3() run the same way, and
    `python -m sedifoam_tpu_torch.run_case` on it with --device cuda;
@@ -118,21 +132,26 @@ which passes or exits nonzero:
    kernel
    against its plain version on the sorted state (<= 1e-5), and its
    device time on the unsorted and the sorted state;
-14. validate: the irregular, transport-bedload, transport-suspended
-   and transport-vortex-dune validators (sedifoam_tpu_torch/validate/)
+14. validate: the irregular, transport-bedload, transport-suspended,
+   transport-vortex-dune and jetFlow validators
+   (sedifoam_tpu_torch/validate/)
    at the full mesh and table of each (72x50x36 coarsened 4x, 140x65x60
    and 140x65x60 coarsened 2x, the dune's two-block 156x26x40 coarsened
    2x; tables of 8,192, 8,192, 65,536 and 65,536 rows, as the reference
    scripts default), cut in depth only: 200 of 6,000 steps, 50 settling
-   + 250 of 30,000 forced steps, and 50 + 200 of 2,000 + 15,000 for the
-   two new cases (the dune's cut run marked quick); every gate such a
+   + 250 of 30,000 forced steps, 50 + 200 of 2,000 + 15,000 for the
+   suspended and dune cases (the dune's cut run marked quick), and
+   jetFlow's 250 of 7,500 steps at its full O-grid and 65,536 rows
+   (marked quick: its decay and population gates need the whole 1.5 s;
+   one more launch a step that adds); every gate such a
    run evaluates must hold (finite, rigid members, frozen rows still, no
    escapes, alpha bounds, k_audit), the full-run gates are printed as
    not evaluated; nbr_dropped 0, launches = setup + substeps, the step
    run as a replayed graph; ms per forced step;
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
-   table (launches summed over the main path, graph, runner, inject,
-   case, clumps, extras, bench and validate, with the N and K it ran at,
+   table (launches summed over the main path, graph (from each case's
+   set-up on), runner, inject, case, clumps, extras, bench and validate,
+   with the N and K it ran at,
    launches inside replayed graphs counted on the device; device time,
    bound, host time and floor per shape; its device time inside a
    replay), and last {"ok": true, "device": {...}}.
@@ -144,6 +163,7 @@ each capture's eager warm-up step.
 Imports nothing of JAX. Needs one card; builds into build/kernels/.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -186,6 +206,16 @@ VALIDATE_DUNE_STEPS = 200          # of 15,000
 # settling steps before the kernel is measured on the two transport
 # cases' states: their mobile grains land on the frozen layer after ~100
 TRANSPORT_KERNEL_SETTLE = 200
+# jetFlow: the steps of one run at which the kernel's states are taken
+# (the window has grown from 2,048 to 4,096 rows at step ~425 and to
+# 16,384 at step ~1,600, when the population passed 4,096), steps before
+# the graph's and the eager step's comparison (three adds of 36
+# particles; an add falls every 14 steps, one among the compared ones),
+# and the cut validator run (of 7,500)
+JETFLOW_KERNEL_STEPS = (450, 1800)
+JETFLOW_KERNEL_WINDOWS = [4096, 16384]      # the windows at those steps
+JETFLOW_GRAPH_PRERUN = 45
+VALIDATE_JETFLOW_STEPS = 250
 GRAPH_STEPS = 10          # replays held against as many eager steps
 GRAPH_TOL = 1e-6          # replay vs eager, of scale, where not bit for bit
 GRAPH_PROFILE = 5         # replays in the profile of a graphed step
@@ -694,12 +724,34 @@ def phase_kernel(dev):
         compare_chain(f"f32 {which} K=23", tp, tcfg.dem, True, 1e-5,
                       may_be_zero=("wall_shear",))
         transport.append((f"{which} f32", tp, tcfg.dem))
+    # jetFlow's table (K = 16, the three wall planes) at
+    # JETFLOW_KERNEL_STEPS steps of one run: the window grown to 4,096
+    # rows, then to 16,384, the full run's largest
+    jcfg, jstates = jetflow_run(dev, *JETFLOW_KERNEL_STEPS)
+    jet = [s.particles for s in jstates]
+    if [q.n_capacity for q in jet] != JETFLOW_KERNEL_WINDOWS:
+        fail(f"jetFlow kernel states: windows {[q.n_capacity for q in jet]}"
+             f" at steps {JETFLOW_KERNEL_STEPS}, not "
+             f"{JETFLOW_KERNEL_WINDOWS}")
+    jet_zero = ("torque", "shear", "wall_shear")
+    for steps, q in zip(JETFLOW_KERNEL_STEPS, jet):
+        say(f"jetFlow kernel state: {int(q.active.sum())} active particles "
+            f"in {q.n_capacity} rows after {steps} steps, "
+            f"{slots_within(q, jcfg.dem.periodic_len())} touching slots")
+        label = f"jetflow {q.n_capacity}"
+        compare_chain(f"f32 {label}", q, jcfg.dem, True, 1e-5,
+                      may_be_zero=jet_zero)
+        compare_chain(f"f64 {label}", tree_map(
+            lambda t: t.double() if t.is_floating_point() else t, q),
+            jcfg.dem, True, 1e-12, may_be_zero=jet_zero)
+    jet_shapes = [(f"jetflow f32 {q.n_capacity}", q, jcfg.dem)
+                  for q in jet]
     shapes = [("bench f32", p, cfg.dem), ("bench f64", p64, cfg.dem),
               ("channel f32", cp, ccfg.dem),
               ("window 2048", window_slice(p, 2048), cfg.dem),
               ("window 65536", window_slice(p, 65536), cfg.dem),
               ("clumps f32", kp, kcfg.dem), ("extras f32", xp, dem_x)] \
-        + transport
+        + transport + jet_shapes
     floor = floor_us()
     res["floor_us"] = floor
     res["shapes"] = [measure_chain(label, q, dem, floor)
@@ -770,6 +822,42 @@ def transport_kernel_case(dev, which):
     state = settle(cfg, initialize(fluid, particles, cfg),
                    (TRANSPORT_KERNEL_SETTLE - 0.5) * cfg.fluid.dt, dev)
     return cfg, tree_map(lambda t: t.clone(), state.particles)
+
+
+def load_jetflow(dev):
+    """jetFlow written at cases.JET_FULL (56x120x56, the O-grid embedded)
+    and loaded as its validator loads it: binned, f32, embed_ogrid,
+    capacity 65,536, the loader's K, initialized. Returns (cfg, state,
+    seconds to write, seconds to load)."""
+    import torch
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.validate import jetflow
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        case = cases.write_jetflow_case(os.path.join(tmp, "jetFlow"),
+                                        **cases.JET_FULL)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg, state = jetflow.load(case, 1, dev, jetflow.CAPACITY,
+                                  torch.float32)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    return cfg, state, t_write, t_load
+
+
+def jetflow_run(dev, *stops):
+    """(cfg, [state after each of `stops` steps]) of one jetFlow run
+    through Simulation (windowed, graphed, 5 steps a host visit; each
+    stop a multiple of 5, in order), each state cloned out of the graph's
+    buffers."""
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    cfg, state, _, _ = load_jetflow(dev)
+    sim = Simulation(cfg, state, steps_per_host_visit=5, device=dev)
+    states = []
+    for steps in stops:
+        run_steps(sim, steps)
+        states.append(tree_map(lambda t: t.clone(), sim.state))
+    return cfg, states
 
 
 def load_clumps(dev, counts):
@@ -1036,28 +1124,44 @@ def phase_graph(dev):
         return cases.inject_case(**cases.INJECT_FULL, dtype=torch.float32,
                                  device=dev)
 
+    def jetflow():
+        # a few adds into the window first: the compared steps start from
+        # jet particles in flight, and one add falls among them
+        cfg, (state,) = jetflow_run(dev, JETFLOW_GRAPH_PRERUN)
+        return cfg, state
+
     out = []
     for label, build in (("bench", bench), ("channel", channel),
                          ("clumps", clumps), ("inject", inject),
                          ("suspended", lambda: load_transport(dev,
                                                               "suspended")),
-                         ("dune", lambda: load_transport(dev, "dune"))):
-        cfg, fluid, particles = build()
-        state0 = initialize(fluid, particles, cfg)
+                         ("dune", lambda: load_transport(dev, "dune")),
+                         ("jetflow", jetflow)):
+        sizes0 = fused.launch_sizes()
+        built = build()
+        if len(built) == 2:                   # a state stepped already
+            cfg, state0 = built
+        else:
+            cfg, fluid, particles = built
+            state0 = initialize(fluid, particles, cfg)
+        particles = state0.particles
         eager = Simulation(cfg, state0, device=dev)
         eager.advance = eager.step_fn               # the oracle
         graph = Simulation(cfg, state0, device=dev)
         counted = CountedAdvance(graph.advance, dev)
         graph.advance = counted
-        sizes0 = fused.launch_sizes()
+        s0 = int(state0.fluid.step)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
-        run_steps(graph, 1)                          # with the capture
+        run_steps(graph, s0 + 1)                     # with the capture
         t_first = time.perf_counter() - t0
-        run_steps(eager, 1)
+        reserved = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        run_steps(eager, s0 + 1)
         torch.cuda.synchronize()
         linsolve.reset_stats()
         t0 = time.perf_counter()
-        run_steps(eager, 1 + GRAPH_STEPS)
+        run_steps(eager, s0 + 1 + GRAPH_STEPS)
         torch.cuda.synchronize()
         ms_eager = (time.perf_counter() - t0) / GRAPH_STEPS * 1e3
         stats_eager = dict(linsolve.STATS)
@@ -1065,7 +1169,7 @@ def phase_graph(dev):
         in_graphs, captured = fused.graph_launches(), dict(fused.CAPTURED)
         cap_s0 = counted.graphed.capture_seconds
         t0 = time.perf_counter()
-        run_steps(graph, 1 + GRAPH_STEPS)
+        run_steps(graph, s0 + 1 + GRAPH_STEPS)
         torch.cuda.synchronize()
         # a window that grew captured anew in the run: its time is set-up
         recaptured = counted.graphed.capture_seconds - cap_s0
@@ -1089,6 +1193,7 @@ def phase_graph(dev):
         res = {"case": label, "captures": g.captures,
                "capture_s": g.capture_seconds,
                "first_step_s": t_first, "recapture_s": recaptured,
+               "first_step_reserved_mb": reserved,
                "ms_eager": ms_eager,
                "ms_graph": ms_graph, "replays": counted.replays,
                "replay_syncs": counted.replay_syncs,
@@ -1130,6 +1235,15 @@ def phase_graph(dev):
             fail(f"graph [{label}]: the replay disagrees with the eager step")
         if label == "inject" and g.captures < 2:
             fail("graph [inject]: the window never grew: one capture")
+        if label == "jetflow":
+            n_act = int(graph.state.particles.active.sum())
+            say(f"graph [jetflow]: {n_act} active particles in "
+                f"{graph.state.particles.n_capacity} rows after "
+                f"{JETFLOW_GRAPH_PRERUN} + {1 + GRAPH_STEPS} steps, "
+                f"{cfg.cloud.sub_steps} substeps a step; the first step "
+                f"(its capture) reserved {reserved:.1f} MB")
+            if n_act <= int(state0.particles.active.sum()):
+                fail("graph [jetflow]: no add among the compared steps")
         sizes = fused.launch_sizes() - sizes0
         K = particles.nbr_idx.shape[0]
         out += [{"N": n, "K": K, "launches": c} for n, c in sizes.items()]
@@ -1553,8 +1667,75 @@ def phase_case(dev):
         f"cells, {-(-n_cells // 1024)} block partials each) {ubar_ms:.3f} ms"
         f" (CUDA events), {ubar_ms / ms * 100:.1f}% of a step")
     res["launches"] = launches
-    res["N"], res["K"] = sorted(by_n), K
+    res["by_n"], res["K"] = by_n, K
     return res
+
+
+def phase_case_jetflow(dev):
+    """jetFlow written as a case directory at its full O-grid
+    (cases.JET_FULL) and loaded as its validator loads it: the embedded
+    grid, the inlet disc's covered area against pi r^2, the BC kinds,
+    turbulence, frozen type, injection and the run shape."""
+    import numpy as np
+    from sedifoam_tpu_torch import bc, cases
+    from sedifoam_tpu_torch.dem.inject import seed_positions
+    from sedifoam_tpu_torch.validate import jetflow
+    cfg, state, t_write, t_load = load_jetflow(dev)
+    p = state.particles
+    g = cfg.grid
+    full = cases.JET_FULL
+    nc = full["column_cells"]
+    side = (full["counts"][0] - nc) // 2
+    w = np.diff(np.asarray(g.axis_faces(0)))
+    ub = cfg.bcs.Ub.ym
+    _, q_disc, q_exact = jetflow.inlet_fluxes(cfg, state.fluid, cases.JET_U)
+    area_err = abs(q_disc / q_exact - 1.0)
+    sites = len(seed_positions(g, cfg.cloud.add_box,
+                               cfg.cloud.reduce_number_factor))
+    # the column's cell centres inside the square inscribed in the disc
+    centres = (np.arange(nc) + 0.5) * cases.JET_COLUMN / nc \
+        - 0.5 * cases.JET_COLUMN
+    per_axis = int((np.abs(centres) <= cases.JET_D / 8 ** 0.5).sum())
+    checks = {
+        f"grid {g.shape}": g.shape == tuple(full["counts"]),
+        "x from -0.05 to 0.05 m": bool(np.allclose(
+            np.asarray(g.axis_faces(0))[[0, -1]], [-0.05, 0.05])),
+        "column uniform 4.4 mm": bool(np.allclose(
+            w[side:side + nc], cases.JET_COLUMN / nc)),
+        "sides mirrored, fine at the column": bool(
+            np.allclose(w[:side], w[::-1][:side]) and w[0] > 5 * w[side - 1]),
+        "Ub.ym RegionPatchBC fixedValue (0 1.72 0) / slip": (
+            isinstance(ub, bc.RegionPatchBC)
+            and ub.inside.kind == bc.FIXED_VALUE
+            and ub.inside.value == (0.0, cases.JET_U, 0.0)
+            and ub.outside.kind == bc.SLIP
+            and abs(ub.region.radius - 0.5 * cases.JET_D) < 1e-15),
+        "Ub.yp inletOutlet, p.yp fixedValue": (
+            cfg.bcs.Ub.yp.kind == bc.INLET_OUTLET
+            and cfg.bcs.p.yp.kind == bc.FIXED_VALUE),
+        "alpha.ym zeroGradient, Ua.ym slip": (
+            cfg.bcs.alpha.ym.kind == bc.ZERO_GRADIENT
+            and cfg.bcs.Ua.ym.kind == bc.SLIP),
+        f"disc area within 2e-2 of pi r^2 ({area_err:.3e})": area_err < 2e-2,
+        "kEqn": cfg.fluid.turbulence.model == "kEqn",
+        "frozen_types (2,)": cfg.dem.frozen_types == (2,),
+        "add and delete, add velocity (0 1.72 0)": (
+            cfg.cloud.add_particle == 1 and cfg.cloud.delete_particle == 1
+            and cfg.cloud.add_velocity == (0.0, cases.JET_U, 0.0)),
+        f"{sites} add sites": sites == per_axis ** 2,
+        "200 substeps of 1e-6 s": (cfg.cloud.sub_steps == 200
+                                   and abs(cfg.dem.dt - 1e-6) < 1e-18),
+        "K 16, three wall planes": (p.nbr_idx.shape[0] == cfg.dem.nbr_k == 16
+                                    and len(cfg.dem.walls) == 3),
+        f"6 particles in {p.n_capacity} rows": (
+            int(p.active.sum()) == 6 and p.n_capacity == jetflow.CAPACITY),
+    }
+    say(f"case [jetflow]: written in {t_write:.2f} s, loaded (embedded "
+        f"O-grid, {g.n_cells} cells, initialized) in {t_load:.2f} s; "
+        + ", ".join(f"{k}: {v}" for k, v in checks.items()))
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"case [jetflow]: {bad}")
 
 
 def phase_entry(dev):
@@ -1756,7 +1937,7 @@ def phase_clumps(dev):
         f"{100 * body_ms / sub_ms:.1f}% of "
         f"a substep of {sub_ms:.4f} ms ({free_ms:.4f} ms with the bodies "
         "taken out of the state)")
-    return {"launches": launches, "N": sorted(by_n), "K": K}
+    return {"launches": launches, "by_n": by_n, "K": K}
 
 
 def phase_extras(dev):
@@ -1899,7 +2080,7 @@ def phase_extras(dev):
         f"by N {by_n} at K {K}")
     if launches != expected:
         fail(f"extras: kernel launched {launches} times, expected {expected}")
-    return {"launches": launches, "N": sorted(by_n), "K": K}
+    return {"launches": launches, "by_n": by_n, "K": K}
 
 
 def phase_dns(dev):
@@ -2053,9 +2234,31 @@ def phase_bench(dev, floor):
     say(f"bench: kernel device time unsorted {us[0]:.2f} us, sorted "
         f"{us[1]:.2f} us (same bytes: bound "
         f"{shapes[1]['bound_ms'] * 1e3:.2f} us)")
-    return {"launches": launches, "N": sorted(by_n), "K": srt.cfg.dem.nbr_k,
+    return {"launches": launches, "by_n": by_n, "K": srt.cfg.dem.nbr_k,
             "max_abs_err": res["max_abs_err"], "shapes": shapes,
             "rates": {k: r.value for k, r in runs.items()}}
+
+
+@contextlib.contextmanager
+def counted_adds(dev):
+    """Within the block, each add of particles (inject.add_particles,
+    eager or in a replayed graph's add branch, into which the count's
+    own add is captured) adds one to a counter on the device; yields the
+    counter."""
+    import torch
+    from sedifoam_tpu_torch.dem import inject
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    add = inject.add_particles
+
+    def counted(*args, **kw):
+        count.add_(1)
+        return add(*args, **kw)
+
+    inject.add_particles = counted
+    try:
+        yield count
+    finally:
+        inject.add_particles = add
 
 
 def phase_validate(dev):
@@ -2068,11 +2271,11 @@ def phase_validate(dev):
     full-run gates unevaluated."""
     from sedifoam_tpu_torch.dem import fused
     from sedifoam_tpu_torch.validate import (battery, bedload, dune,
-                                             irregular, suspended)
+                                             irregular, jetflow, suspended)
     out = {}
     dt = 1e-4
 
-    def t(steps):
+    def t(steps, dt=dt):
         return steps * dt - 0.5 * dt
 
     specs = (
@@ -2099,13 +2302,20 @@ def phase_validate(dev):
          VALIDATE_DUNE_STEPS, VALIDATE_DUNE_SETTLE, 23, 80,
          f"0.2 s settling + 1.5 s (17,000 steps) cut to "
          f"{VALIDATE_DUNE_SETTLE} + {VALIDATE_DUNE_STEPS} steps, 5 coupling "
-         "cycles a step"))
+         "cycles a step"),
+        ("jetFlow", lambda: jetflow.run(
+            t_end=t(VALIDATE_JETFLOW_STEPS, 2e-4), quick=True, device=dev),
+         VALIDATE_JETFLOW_STEPS, 0, 16, 200,
+         f"1.5 s (7,500 steps) cut to {VALIDATE_JETFLOW_STEPS} steps at the "
+         "full mesh and table (marked quick)"))
     for name, fn, steps, settle, K, sub, cut in specs:
         fused.reset_launches()
         caps = captures()
         t0 = time.perf_counter()
-        res = fn()
+        with counted_adds(dev) as added:
+            res = fn()
         wall = time.perf_counter() - t0
+        adds = int(added)
         launches, by_n = fused.launches(), dict(fused.launch_sizes())
         in_graphs = fused.graph_launches()
         caps = captures() - caps
@@ -2131,16 +2341,19 @@ def phase_validate(dev):
             fail(f"validate {name}: the step did not run as a replayed graph")
         # 1 setup, the steps, a warm-up step per capture (the settling
         # run and the forced run capture one each) and timing_split's
-        # 1 + 5 evolves
-        expected = 1 + (steps + settle + caps + 6) * sub
+        # 1 + 5 evolves, each sub substeps; an add (in any of these
+        # steps) rebuilds the table and sets up the forces once more
+        expected = 1 + (steps + settle + caps + 6) * sub + adds
         say(f"validate [{name}]: contact_chain launches {launches} (1 setup"
             f" + ({steps + settle} steps + {caps} capture warm-ups + 6 "
-            f"evolves of the timing split) x {sub} substeps = {expected}) "
-            f"by N {by_n} at K {K}")
+            f"evolves of the timing split) x {sub} substeps + {adds} adds "
+            f"= {expected}) by N {by_n} at K {K}")
+        if (adds > 0) != (name == "jetFlow"):
+            fail(f"validate {name}: {adds} adds of particles")
         if launches != expected:
             fail(f"validate {name}: kernel launched {launches} times, "
                  f"expected {expected}")
-        out[name] = {"launches": launches, "N": sorted(by_n), "K": K}
+        out[name] = {"launches": launches, "by_n": by_n, "K": K}
     return out
 
 
@@ -2163,6 +2376,7 @@ def main():
     phase_dense(dev)
     case = phase_case(dev)
     launches += case["launches"]
+    phase_case_jetflow(dev)
     phase_entry(dev)
     clumps = phase_clumps(dev)
     extras = phase_extras(dev)
@@ -2179,8 +2393,8 @@ def main():
     launches += sum(r["launches"] for r in graph_ran)
     paths = (case, clumps, extras, bench) + tuple(validate.values())
     for path in paths:
-        ran_at += [{"N": n, "K": path["K"], "launches": path["launches"]}
-                   for n in path["N"]]
+        ran_at += [{"N": n, "K": path["K"], "launches": c}
+                   for n, c in sorted(path["by_n"].items())]
     launches += sum(path["launches"] for path in paths[1:])
     k["shapes"] += bench["shapes"]
     bench_rates, bench = bench["rates"], k["shapes"][0]

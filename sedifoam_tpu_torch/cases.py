@@ -968,3 +968,289 @@ def extras_bed(n_particles=131072, cohesion_model=None, lubrication=False,
     omega = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, 3)) * vmax / (0.5 * d),
                             dtype=dtype, device=device)
     return dem, particles._replace(vel=vel, v_old=vel.clone(), omega=omega)
+
+
+# ---------------------------------------------------------------------------
+# jetFlow: the particle-laden round jet on an O-grid
+# ---------------------------------------------------------------------------
+
+# the tank and jet (scripts/validate_jetflow.py:3-6: a D = 5 mm jet at
+# 1.72 m/s into a 0.1 x 0.3 x 0.1 m tank, 0.5 mm particles added every
+# 2.5 ms) and the embedded mesh (tests/test_jetflow.py:34-53)
+JET_BOX = (-0.05, 0.05, 0.0, 0.3, -0.05, 0.05)
+JET_D = 0.005
+JET_U = 1.72
+JET_COLUMN = 0.0044           # the O-grid's square jet column
+JET_FULL = dict(counts=(56, 120, 56), column_cells=8)
+JET_PARTICLE_D = 5e-4
+JET_RHOA = 2500.0
+JET_ADD_INTERVAL = 0.0025
+JET_DEM_DT = 1e-6
+JET_SIDE_GRADING = 0.06       # side blocks, outer -> inner
+JET_AXIAL_GRADING = 4.0       # last/first axial cell
+
+
+def jetflow_seed():
+    """The LAMMPS data file's rows (id type d rho x y z) of jetFlow's seed
+    particles: four frozen type-2 particles (the `bottom` group) on the
+    floor 20 mm off the axis, outside the inlet disc, and two type-1
+    particles resting on the floor 30 mm off the axis in x and z."""
+    d = JET_PARTICLE_D
+    y = JET_BOX[2] + 0.5 * d
+    sites = [(2, 0.02, 0.0), (2, -0.02, 0.0), (2, 0.0, 0.02),
+             (2, 0.0, -0.02), (1, 0.03, 0.03), (1, -0.03, -0.03)]
+    return [f"{i} {t} {d} {JET_RHOA} {x:.8f} {y:.8f} {z:.8f}"
+            for i, (t, x, z) in enumerate(sites, start=1)]
+
+
+def _ogrid_mesh(counts, column_cells):
+    """jetFlow's five-block O-grid (a blockMeshDict body): a square jet
+    column JET_COLUMN m wide along y through JET_BOX's x-z centre, its
+    vertical edges bulged by arcs through points on the inlet disc's rim
+    (diameter JET_D), and four side blocks out to the box, graded
+    JET_SIDE_GRADING from the outer face to the column. Every block is
+    right-handed and has `counts[1]` axial cells, graded
+    JET_AXIAL_GRADING.
+    Patches: `inlet` (the column's floor), `bottom` (the rest of the
+    floor), `top` and `outer` (the four side faces)."""
+    nx, ny, nz = counts
+    side = (nx - column_cells) // 2
+    if nx != nz or side < 1 or 2 * side + column_cells != nx:
+        raise ValueError(f"counts {counts}: the two cross axes must each be "
+                         f"two equal side segments around {column_cells} "
+                         "column cells")
+    box, mm = JET_BOX, 1e3
+    cx, cz = 0.5 * (box[0] + box[1]) * mm, 0.5 * (box[4] + box[5]) * mm
+    h, R = 0.5 * JET_COLUMN * mm, 0.5 * JET_D * mm
+    x0, x1, z0, z1 = box[0] * mm, box[1] * mm, box[4] * mm, box[5] * mm
+    ring = [(x0, z0), (x1, z0), (x1, z1), (x0, z1),
+            (cx - h, cz - h), (cx + h, cz - h), (cx + h, cz + h),
+            (cx - h, cz + h)]
+    verts = "\n".join(f"    ({x:.10g} {y:.10g} {z:.10g})"
+                      for y in (box[2] * mm, box[3] * mm) for x, z in ring)
+    g, gy, nc = JET_SIDE_GRADING, JET_AXIAL_GRADING, column_cells
+    blocks = [
+        ((4, 7, 6, 5), (nc, nc), (1, 1)),             # the column
+        ((0, 4, 5, 1), (side, nc), (g, 1)),           # -z side
+        ((2, 6, 7, 3), (side, nc), (g, 1)),           # +z side
+        ((3, 7, 4, 0), (side, nc), (g, 1)),           # -x side
+        ((1, 5, 6, 2), (side, nc), (g, 1)),           # +x side
+    ]
+    hexes = "\n".join(
+        f"    hex ({' '.join(map(str, q))} {' '.join(str(v + 8) for v in q)}) "
+        f"({n1} {n2} {ny}) simpleGrading ({g1:g} {g2:g} {gy:g})"
+        for q, (n1, n2), (g1, g2) in blocks)
+    arcs = []
+    for lvl, y in ((0, box[2] * mm), (8, box[3] * mm)):
+        for (a, b), (mx, mz) in (((4, 5), (cx, cz - R)),
+                                 ((5, 6), (cx + R, cz)),
+                                 ((6, 7), (cx, cz + R)),
+                                 ((7, 4), (cx - R, cz))):
+            arcs.append(f"    arc {a + lvl} {b + lvl} "
+                        f"({mx:.10g} {y:.10g} {mz:.10g})")
+    arcs = "\n".join(arcs)
+    return f"""
+convertToMeters 0.001;
+vertices
+(
+{verts}
+);
+blocks
+(
+{hexes}
+);
+edges
+(
+{arcs}
+);
+boundary
+(
+    inlet  {{ type patch; faces ( (4 7 6 5) ); }}
+    bottom {{ type wall; faces ( (0 4 5 1) (2 6 7 3) (3 7 4 0) (1 5 6 2) ); }}
+    top    {{ type patch; faces ( (12 13 14 15) (8 9 13 12) (10 11 15 14)
+                                 (11 8 12 15) (9 10 14 13) ); }}
+    outer  {{ type wall; faces ( (0 1 9 8) (2 3 11 10) (3 0 8 11)
+                                 (1 2 10 9) ); }}
+);
+"""
+
+
+def jetflow_boxes(counts=JET_FULL["counts"]):
+    """(add box, delete box) of write_jetflow_case, each (x0 x1 y0 y1 z0
+    z1): the add box is the square inscribed in the inlet disc, from the
+    floor to halfway between the full mesh's second-layer centre plane
+    and the 2x-coarsened mesh's first: it holds the first cell layer's
+    centres on both meshes and nothing above them. The delete box is the
+    top two cell layers over the whole cross-section."""
+    from sedifoam_tpu_torch.io.case import _graded_faces
+    box = JET_BOX
+    y = _graded_faces(box[2], box[3], counts[1], JET_AXIAL_GRADING)
+    cx, cz = 0.5 * (box[0] + box[1]), 0.5 * (box[4] + box[5])
+    half = 0.5 * JET_D / np.sqrt(2.0)
+    y_add = 0.25 * (y[1] + 2.0 * y[2])
+    add = (cx - half, cx + half, box[2], y_add, cz - half, cz + half)
+    delete = (box[0], box[1], y[-3], box[3], box[4], box[5])
+    return add, delete
+
+
+def write_jetflow_case(case_dir: str, counts=JET_FULL["counts"],
+                       column_cells=JET_FULL["column_cells"],
+                       add_interval=JET_ADD_INTERVAL,
+                       dem_dt=JET_DEM_DT) -> str:
+    """Write jetFlow, the particle-laden round jet (the reference's
+    cases/example-cases/jetFlow, after Wang's LES of starting and
+    developed particle-laden jets), as a case directory that both
+    packages load with load_case(..., embed_ogrid=True). Returns
+    case_dir.
+
+    From what the repo records:
+    - the O-grid (tests/test_jetflow.py:34-53): four side blocks of 24
+      cells graded 0.06 from outer to inner around a column 4.4 mm wide
+      of 8 uniform cells, 120 axial cells; x and z from -0.05 to 0.05 m;
+      the column's end on the floor is the `inlet` patch, an arc-edged
+      disc of radius 2.5 mm inside the `bottom` patch; `top` is the y+
+      face and `outer` the four side faces. Embedded: 56 x 120 x 56;
+    - the tank 0.1 x 0.3 x 0.1 m, the D = 5 mm jet at 1.72 m/s along +y,
+      0.5 mm particles added every 2.5 ms near the inlet and deleted near
+      the outlet (scripts/validate_jetflow.py:1-20);
+    - the BCs (tests/test_jetflow.py:55-83): Ub fixedValue (0 1.72 0) on
+      the inlet and slip on the rest of the floor, inletOutlet at the
+      top with p fixedValue 0 there; alpha and Ua slip on the floor
+      (zeroGradient for the scalar); kEqn LES chosen by the `LES`
+      subdict of turbulenceProperties (a stale constant/LESProperties
+      naming Smagorinsky is written too, as the reference ships one);
+      the type-2 `bottom` group excluded from `fix nve/sphere`, so
+      frozen; addParticle and deleteParticle on, add velocity (0 1.72
+      0);
+    - deltaT 2e-4 s to endTime 1.5 s and a DEM timestep of 1e-6 s: 200
+      substeps, 7,500 steps (STATUS.md:5-20).
+
+    Chosen here (the repo does not record them):
+    - the axial grading: last cell 4x the first (1.15 mm at the inlet,
+      4.6 mm at the top; Courant 0.30 at 1.72 m/s in the first layer);
+      the side grading's direction and the arcs through the disc's rim
+      at the column's edge midpoints; straight outer edges (the tank is
+      the box the embedding keeps);
+    - the outer walls: slip for Ub and Ua, zeroGradient for alpha and
+      p; alpha inletOutlet 0 and Ua zeroGradient at the top;
+    - the grains: glass, 2500 kg/m^3; water (rhob 1000, nub 1e-6; jet Re
+      8,600); gravity 9.81 m/s^2 along -y; ErgunWenYu drag (Wen-Yu at
+      these dilute fractions), diffusionBandWidth 3 mm, the explicit
+      drag (the script sets no semi-implicit one), pressure gradient on
+      and no separate buoyancy (the loader's defaults);
+    - the pair and wall line `gran/hooke/history 200 NULL 50000 NULL
+      0.4 0` (the sand cases'): the Hooke contact time
+      pi*sqrt(m_eff/kn) = 6.4e-5 s is 64 DEM steps; walls on the vertex
+      bounding box; `boundary f f f`;
+    - the add box (jetflow_boxes): the square inscribed in the inlet
+      disc over the first cell layer, 6 x 6 = 36 sites (the column's
+      middle cells, 0.55 mm apart: no two seeds touch), cleared before
+      each add (deleteBeforeAdd, clearInitialBox = the add box),
+      randomPerturb 5e-5 m (+-25 um); the delete box: the top two cell
+      layers (9.2 mm) over the whole cross-section;
+    - the seed particles (jetflow_seed): four frozen type-2 and two
+      type-1 particles on the floor off the disc;
+    - PCG tolerance 1e-6 with 2 PISO correctors; the fluid at rest; the
+      five axis probes of the validator (y/D 10 to 50).
+
+    The population: 36 particles an add, 400 adds a second, so 14,400
+    a second. None leaves before it has crossed the 0.29 m to the
+    delete box, at 1.72 m/s at most (0.17 s), so at t = 1.5 s at least
+    the last 0.17 s of adds are in the tank (2,450 > 100), and at most
+    every add of the run (600 x 36 + 6 = 21,606 < 65,536): the bounds of
+    the validator's `particles_flowing` gate hold whatever the jet does
+    with them.
+
+    `counts` and `column_cells` shrink the mesh (each cross axis is two
+    equal side segments around the column), `add_interval` and `dem_dt`
+    the run (tests).
+    """
+    box = JET_BOX
+    _foam(case_dir, "constant/polyMesh/blockMeshDict", "dictionary",
+          _ogrid_mesh(counts, column_cells))
+    zg = "type zeroGradient;"
+    slip = "type slip;"
+    _field(case_dir, "alpha", "volScalarField", _DIMS["alpha"], "uniform 0",
+           {"inlet": slip, "bottom": slip,
+            "top": "type inletOutlet; inletValue uniform 0; value uniform 0;",
+            "outer": zg})
+    _field(case_dir, "p", "volScalarField", _DIMS["p"], "uniform 0",
+           {"inlet": zg, "bottom": zg,
+            "top": "type fixedValue; value uniform 0;", "outer": zg})
+    _field(case_dir, "Ub", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
+           {"inlet": f"type fixedValue; value uniform (0 {JET_U} 0);",
+            "bottom": slip,
+            "top": "type inletOutlet; inletValue uniform (0 0 0); "
+                   "value uniform (0 0 0);",
+            "outer": slip})
+    _field(case_dir, "Ua", "volVectorField", _DIMS["U"], "uniform (0 0 0)",
+           {"inlet": slip, "bottom": slip, "top": zg, "outer": slip})
+    D = JET_D
+    _foam(case_dir, "system/controlDict", "dictionary", f"""
+startTime 0;
+endTime 1.5;
+deltaT 2e-4;
+writeInterval 0.1;
+""" + _probes([(0.0, s * D, 0.0) for s in (10, 20, 30, 40, 50)]))
+    _foam(case_dir, "system/fvSolution", "dictionary", """
+solvers
+{
+    p { solver PCG; preconditioner DIC; tolerance 1e-6; relTol 0; }
+}
+PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
+""")
+    _foam(case_dir, "constant/transportProperties", "dictionary", f"""
+rhoa rhoa [1 -3 0 0 0 0 0] {JET_RHOA};
+rhob rhob [1 -3 0 0 0 0 0] 1000;
+nub nub [0 2 -1 0 0 0 0] 1e-06;
+Cvm Cvm [0 0 0 0 0 0 0] 0;
+Cl Cl [0 0 0 0 0 0 0] 0;
+""")
+    _foam(case_dir, "constant/environmentalProperties", "dictionary",
+          "g g [0 1 -2 0 0 0 0] (0 -9.81 0);\n")
+    _foam(case_dir, "constant/turbulenceProperties", "dictionary", """
+simulationType LES;
+LES { LESModel kEqn; turbulence on; delta cubeRootVol; }
+""")
+    _foam(case_dir, "constant/LESProperties", "dictionary",
+          "LESModel Smagorinsky;\ndelta cubeRootVol;\n")
+    add, delete = jetflow_boxes(counts)
+
+    def vec(v):
+        return "(" + " ".join(repr(float(x)) for x in v) + ")"
+
+    _foam(case_dir, "constant/cloudProperties", "dictionary", f"""
+dragModel ErgunWenYu;
+subCycles 1;
+diffusionBandWidth 0.003;
+addParticle 1;
+addParticleTimeStep {add_interval};
+addParticleInfo ({JET_PARTICLE_D} {JET_RHOA} 1);
+addParticleVelocity (0 {JET_U} 0);
+addParticleBox {vec(add)};
+deleteBeforeAdd 1;
+clearInitialBox {vec(add)};
+randomPerturb 5e-05;
+deleteParticle 1;
+deleteParticleBox {vec(delete)};
+""")
+    _write(os.path.join(case_dir, "in.lammps"), f"""\
+atom_style      sphere
+boundary        f f f
+newton          off
+read_data       In_initial.in
+pair_style      gran/hooke/history {SAND_GRAN}
+pair_coeff      * *
+timestep        {dem_dt}
+group           bottom type 2
+group           active subtract all bottom
+fix             1 active nve/sphere
+fix             2 all gravity 9.81 vector 0 -1 0
+fix             3 all fdrag
+fix             xwalls all wall/gran {SAND_GRAN} xplane {box[0]} {box[1]}
+fix             ywalls all wall/gran {SAND_GRAN} yplane {box[2]} {box[3]}
+fix             zwalls all wall/gran {SAND_GRAN} zplane {box[4]} {box[5]}
+""")
+    _data_file(os.path.join(case_dir, "In_initial.in"), jetflow_seed(),
+               box, 2)
+    return case_dir

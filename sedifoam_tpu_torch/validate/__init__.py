@@ -1,6 +1,6 @@
 """Case-level validators of the port (the counterparts of
 ``scripts/validate_irregular.py``, ``validate_bedload.py``,
-``validate_suspended.py``, ``validate_dune.py`` and
+``validate_suspended.py``, ``validate_dune.py``, ``validate_jetflow.py`` and
 ``scripts/run_all_cases.py``).
 
 Each module runs with ``python -m`` and has a ``main(argv)`` that prints

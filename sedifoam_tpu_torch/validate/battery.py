@@ -7,8 +7,8 @@ each judged by its own gates, into results/torch_report.json.
 
 Cases: xiaocase3 (the one-particle settling curve against
 tests/golden_data/xiaoCase3.dat, dense DEM, f64), irregular,
-transport-bedload, transport-suspended and transport-vortex-dune (their
-validators' `passed`). --quick shortens the
+transport-bedload, transport-suspended, transport-vortex-dune and jetFlow
+(their validators' `passed`). --quick shortens the
 runs (smoke mode; the report is marked quick). The cases whose input
 files the repository does not hold are listed in the report as
 `"not_run": "<what is missing>"`: not passed, not left out.
@@ -46,13 +46,12 @@ NOT_RUN = {
                     "cases/auto-testing/test-cases/expMueller09",
     "expWachem_PCM": "case directory cases/auto-testing/test-cases/"
                      "expWachem_PCM",
-    "jetFlow": "the O-grid case directory cases/example-cases/jetFlow",
     "BL24-TH1": "case directory and In_initial.in of "
                 "cases/example-cases/BL24-TH1",
 }
 # the cases judged by their validator's `passed`
 VALIDATED = ("irregular", "transport-bedload", "transport-suspended",
-             "transport-vortex-dune")
+             "transport-vortex-dune", "jetFlow")
 
 
 def run_xiaocase3(device=None, quick=False) -> dict:
@@ -117,7 +116,8 @@ def judge(name, data, quick=False) -> bool:
 
 def case_runners(device, quick):
     """{name: function returning the case's result dict}."""
-    from sedifoam_tpu_torch.validate import bedload, dune, irregular, suspended
+    from sedifoam_tpu_torch.validate import (bedload, dune, irregular,
+                                             jetflow, suspended)
 
     def validator(module):
         kw = dict(module.QUICK, quick=True) if quick else {}
@@ -129,6 +129,7 @@ def case_runners(device, quick):
         "transport-bedload": validator(bedload),
         "transport-suspended": validator(suspended),
         "transport-vortex-dune": validator(dune),
+        "jetFlow": validator(jetflow),
     }
 
 

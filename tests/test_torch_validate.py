@@ -420,4 +420,4 @@ def test_battery_never_writes_the_reference_report(capsys):
                       "--device", "cpu"])
     assert "reference battery's report" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        battery.main(["--only", "jetFlow", "--device", "cpu"])
+        battery.main(["--only", "BL24-TH1", "--device", "cpu"])
