@@ -148,6 +148,21 @@ which passes or exits nonzero:
    escapes, alpha bounds, k_audit), the full-run gates are printed as
    not evaluated; nbr_dropped 0, launches = setup + substeps, the step
    run as a replayed graph; ms per forced step;
+14b. lattice: the lattice DEM backend (dem/lattice.py, plain PyTorch:
+   the JAX package's lattice is XLA-generated, no Pallas kernel) at the
+   bench case's full width: `python -m sedifoam_tpu_torch.bench
+   --backend=binned` and `--backend=lattice` (LATTICE_REPEATS timed
+   blocks each, subprocesses); in this process the lattice bench step
+   captured and replayed (capture s, nodes, peak memory, ms per step
+   eager and replayed, particle-substeps/s, the top kernels of a
+   replay), a replay equal to the eager step bit for bit with 0 host
+   syncs, lattice_unslotted 0, no contact_chain launched; the force pass
+   and the carry alone (CUDA events), two force passes bitwise equal;
+   lattice against binned on the bench bed after LATTICE_SETTLE binned
+   steps, f32 and f64 (one force pass; a trajectory through forced
+   rebuilds; LATTICE_TOL); the channel loaded on both backends (f64,
+   LATTICE_CHANNEL_STEPS graphed steps through Simulation, by tag); and
+   run_case --backend lattice on xiaocase3;
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, graph (from each case's
    set-up on), runner, inject, case, clumps, extras, bench and validate,
@@ -165,6 +180,7 @@ Imports nothing of JAX. Needs one card; builds into build/kernels/.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -216,6 +232,27 @@ JETFLOW_KERNEL_STEPS = (450, 1800)
 JETFLOW_KERNEL_WINDOWS = [4096, 16384]      # the windows at those steps
 JETFLOW_GRAPH_PRERUN = 45
 VALIDATE_JETFLOW_STEPS = 250
+# the lattice backend (phase_lattice): timed blocks of the bench module,
+# eager steps held against as many replays, timed replays, profiled
+# replays, passes per CUDA-event time, binned steps before the backends
+# are compared, substeps before each forced rebuild there, channel steps
+LATTICE_REPEATS = 3
+LATTICE_STEPS = 2
+LATTICE_TIMED = 5
+LATTICE_PROFILE = 2
+LATTICE_PASSES = 3
+LATTICE_SETTLE = 5
+LATTICE_SUBSTEPS = 5
+LATTICE_CHANNEL_STEPS = 3
+# lattice vs binned on one bed, of each field's scale: the contact force
+# and torque of one pass, pos/vel and omega after 2 x (5 substeps + a
+# forced rebuild); the two backends sum each particle's contacts in
+# another order (an H100 run measured at most 1.8e-7 in f32, 3.4e-16 in
+# f64); the channel's particles by tag and Ub after 3 f64 steps
+# (measured 4.9e-12: round-off grown through the coupled steps)
+LATTICE_TOL = {"float32": {"force": 1e-5, "traj": 1e-5, "omega": 1e-4},
+               "float64": {"force": 1e-12, "traj": 1e-12, "omega": 1e-12}}
+LATTICE_CHANNEL_TOL = 1e-10
 GRAPH_STEPS = 10          # replays held against as many eager steps
 GRAPH_TOL = 1e-6          # replay vs eager, of scale, where not bit for bit
 GRAPH_PROFILE = 5         # replays in the profile of a graphed step
@@ -2239,6 +2276,311 @@ def phase_bench(dev, floor):
             "rates": {k: r.value for k, r in runs.items()}}
 
 
+def lattice_state(ps, cfg_dem):
+    """Particles ps (any backend) on the lattice of cfg_dem: an empty
+    history of the lattice's shape, slotted by a forced rebuild."""
+    import torch
+    from sedifoam_tpu_torch.dem import integrate, lattice
+    g = lattice.make_geom(cfg_dem)
+    n = ps.n_capacity
+    ps = ps._replace(
+        shear=torch.zeros((3, len(lattice.geom_offsets(g)), g.M, g.M, g.S),
+                          dtype=ps.pos.dtype, device=ps.pos.device),
+        nbr_idx=torch.full((g.M, g.S), n, dtype=torch.int32,
+                           device=ps.pos.device))
+    return integrate.maybe_rebuild_neighbors(ps, cfg_dem, force=True)
+
+
+def unslotted(state, cfg):
+    from sedifoam_tpu_torch.runtime import diagnostics
+    d = diagnostics.compute(state, cfg.grid, cfg.fluid, cfg.dem)
+    return int(d["lattice_unslotted"])
+
+
+def bench_module(backend):
+    """`python -m sedifoam_tpu_torch.bench --backend=... --repeats
+    LATTICE_REPEATS` on the card: (each repeat's rate, the JSON line,
+    seconds of the process)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "sedifoam_tpu_torch.bench",
+         f"--backend={backend}", "--repeats", str(LATTICE_REPEATS)],
+        capture_output=True, text=True, env=dict(os.environ,
+                                                 PYTHONPATH=REPO),
+        cwd=REPO, timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"bench --backend={backend} exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    rates = [float(ln.split(",")[1].split()[0]) for ln in lines
+             if ln.startswith("repeat ")]
+    return rates, json.loads(lines[-1]), wall
+
+
+def phase_lattice(dev):
+    """The lattice DEM backend (dem/lattice.py) at the bench case's full
+    width through the port's entry points, held against the binned
+    backend on the same bed, and on the loaded channel case. The lattice
+    path launches no contact_chain: its launches here are the binned
+    runs it is compared with, made to compare and not counted."""
+    import torch
+    from sedifoam_tpu_torch import bench_case, cases, device_vector
+    from sedifoam_tpu_torch.dem import fused, integrate, lattice
+    from sedifoam_tpu_torch.io.case import load_case
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import CoupledStep, GraphedStep, \
+        initialize
+
+    counted = launch_snapshot()
+    out = {}
+    # -- the bench module, both backends, in this call -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    say(f"lattice: this process holds "
+        f"{torch.cuda.memory_allocated(dev) / gib:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / gib:.2f} GB reserved before "
+        f"the subprocesses")
+    for backend in ("binned", "lattice"):
+        rates, line, wall = bench_module(backend)
+        out[f"module_{backend}"] = line["value"]
+        say(f"lattice: python -m sedifoam_tpu_torch.bench "
+            f"--backend={backend} --repeats {LATTICE_REPEATS}: repeats "
+            f"{rates} particle-substeps/s, {json.dumps(line)} ({wall:.1f} "
+            f"s of process)")
+        if not (line["value"] > 0 and len(rates) == LATTICE_REPEATS):
+            fail(f"lattice: bench --backend={backend} printed {line}")
+
+    # -- the bench case on the lattice, in this process ------------------
+    full = bench_case.FULL
+    n = full["n_particles"]
+    cfg = bench_case.build_config(**full, backend="lattice")
+    geom = lattice.make_geom(cfg.dem)
+    noff = len(lattice.geom_offsets(geom))
+    fluid, particles = bench_case.build_state(cfg, n, torch.float32, dev)
+    step = CoupledStep(cfg, torch.float32, dev)
+    state0 = step.initialize(fluid, particles)
+    sh = state0.particles.shear
+    say(f"lattice: bench geometry nb {geom.nb}, padded {geom.padded}, S "
+        f"{geom.S}, M {geom.M}, {noff} offsets; shear {tuple(sh.shape)} "
+        f"= {sh.numel() * sh.element_size() / 1e9:.3f} GB (f32); "
+        f"{noff * geom.M ** 2 * geom.S:.4e} slot pairs a force pass")
+    if unslotted(state0, cfg):
+        fail(f"lattice: {unslotted(state0, cfg)} unslotted particles")
+    launches0 = fused.launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reserved0 = torch.cuda.memory_reserved(dev)
+    graphed = CountedAdvance(GraphedStep(step), dev)
+    t0 = time.perf_counter()
+    s_g = graphed(tree_map(torch.clone, state0))     # the capture + 1 step
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    g = graphed.graphed
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    reserved = (torch.cuda.memory_reserved(dev) - reserved0) / 2**30
+    s_e = tree_map(torch.clone, state0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1 + LATTICE_STEPS):
+        s_e = step(s_e)
+    torch.cuda.synchronize()
+    ms_eager = (time.perf_counter() - t0) / (1 + LATTICE_STEPS) * 1e3
+    for _ in range(LATTICE_STEPS):
+        s_g = graphed(s_g)
+    differ = fields_that_differ(s_e, s_g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LATTICE_TIMED):
+        s_g = graphed(s_g)
+    float(torch.sum(s_g.particles.vel[:, 1]))
+    ms_graph = (time.perf_counter() - t0) / LATTICE_TIMED * 1e3
+    sub = cfg.cloud.sub_cycles * cfg.cloud.sub_steps
+    rate = n * sub / (ms_graph * 1e-3)
+    check_finite(s_g, "lattice bench")
+    busy, _, seen, top = profile_replays(
+        g, tree_map(torch.clone, s_g), LATTICE_PROFILE)
+    out.update(capture_s=g.capture_seconds, nodes=g.graph.nodes,
+               ms_eager=ms_eager, ms_graph=ms_graph, rate=rate,
+               peak_gb=peak, busy=busy,
+               kernels_per_replay=seen / LATTICE_PROFILE, top=top)
+    say(f"lattice: bench step captured in {g.capture_seconds:.2f} s "
+        f"({g.graph.nodes} conditional nodes), first step {t_first:.2f} "
+        f"s; peak allocated {peak:.2f} GB, reserved +{reserved:.2f} GB "
+        f"around the capture; {1 + LATTICE_STEPS} eager steps "
+        f"{ms_eager:.3f} ms/step, {LATTICE_TIMED} replays {ms_graph:.3f} "
+        f"ms/step ({rate:.1f} particle-substeps/s; host clock ending in a "
+        f"fetch); host syncs inside {graphed.replays} replays: "
+        f"{graphed.replay_syncs}; replay vs eager after "
+        f"{1 + LATTICE_STEPS} steps: "
+        + ("equal bit for bit" if not differ else f"differ in {differ}")
+        + f"; device busy {100 * busy:.1f}% of {LATTICE_PROFILE} profiled "
+        f"replays, {seen / LATTICE_PROFILE:.0f} kernels a replay; most "
+        f"device time per replay (us): {top}")
+    if graphed.replay_syncs:
+        fail(f"lattice: {graphed.replay_syncs} host syncs inside the "
+             f"replays, at {graphed.where}")
+    if differ:
+        fail("lattice: the replayed step differs from the eager step")
+    if unslotted(s_g, cfg):
+        fail(f"lattice: {unslotted(s_g, cfg)} unslotted after the steps")
+    if fused.launches() != launches0:
+        fail("lattice: the lattice path launched contact_chain")
+
+    # -- the force pass and the carry alone (CUDA events) ----------------
+    p = tree_map(torch.clone, s_g.particles)
+    del s_e, s_g, state0, graphed, g
+    torch.cuda.empty_cache()
+
+    def force():
+        return lattice.lattice_pair_forces(p, cfg.dem, geom, p.nbr_idx,
+                                           p.shear, True)
+    a, b = force(), force()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    del a, b
+    ms_force = cuda_ms(force, LATTICE_PASSES)
+    new_slot, overflow = lattice.bin_slots(geom, p.pos, p.active)
+    kc = max(16, cfg.dem.nbr_k)
+
+    def carry():
+        return lattice.carry_shear_lattice(p.nbr_idx, new_slot, p.shear,
+                                           geom, n, k_compact=kc)
+    ms_carry = cuda_ms(carry, LATTICE_PASSES)
+    ms_slots = cuda_ms(lambda: lattice.bin_slots(geom, p.pos, p.active),
+                       LATTICE_PASSES)
+    out.update(force_ms=ms_force, carry_ms=ms_carry, slots_ms=ms_slots)
+    say(f"lattice: lattice_pair_forces {ms_force:.3f} ms a pass, "
+        f"carry_shear_lattice {ms_carry:.3f} ms and bin_slots "
+        f"{ms_slots:.3f} ms a rebuild (CUDA events, mean of "
+        f"{LATTICE_PASSES}, f32, the bench state after "
+        f"{2 + LATTICE_STEPS + LATTICE_TIMED + LATTICE_PROFILE} steps); "
+        f"two force passes bitwise equal: {same}; overflow {int(overflow)}")
+    if not same:
+        fail("lattice: two force passes differ")
+    del p, new_slot
+    torch.cuda.empty_cache()
+
+    # -- lattice against binned on one settled bed -----------------------
+    cfg_b = bench_case.build_config(**full, backend="binned")
+    fluid, particles = bench_case.build_state(cfg_b, n, torch.float32, dev)
+    step_b = CoupledStep(cfg_b, torch.float32, dev)
+    s = step_b.initialize(fluid, particles)
+    for _ in range(LATTICE_SETTLE):
+        s = step_b(s)
+    settled = s.particles
+    del s, step_b
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        ps = tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                      settled)
+        db = cfg_b.dem
+        dl = dataclasses.replace(db, backend="lattice")
+        pb = integrate.maybe_rebuild_neighbors(
+            ps._replace(shear=torch.zeros_like(ps.shear)), db, force=True)
+        pl = lattice_state(ps, dl)
+        fb = integrate.compute_forces(pb, db, shearupdate=True)
+        fl = integrate.compute_forces(pl, dl, shearupdate=True)
+        act = ps.active
+        g_vec = device_vector(tuple(db.gravity), dtype, dev)
+        base = ps.mass[:, None] * g_vec[None] + ps.fdrag
+        contact = (fb.force - base)[act]
+        e_f = float((fl.force - fb.force)[act].abs().max()
+                    / contact.abs().max())
+        e_t = rel_err(fb.torque[act], fl.torque[act])
+        # a trajectory through a forced rebuild on both
+        for _ in range(2):
+            fb = integrate.run_dem(fb, db, LATTICE_SUBSTEPS)
+            fl = integrate.run_dem(fl, dl, LATTICE_SUBSTEPS)
+            fb = integrate.maybe_rebuild_neighbors(fb, db, force=True)
+            fl = integrate.maybe_rebuild_neighbors(fl, dl, force=True)
+        if int(fb.nbr_dropped) or not torch.equal(fb.tag, fl.tag):
+            fail("lattice: the binned run dropped partners or moved rows")
+        e_p = rel_err(fb.pos[act], fl.pos[act])
+        e_v = rel_err(fb.vel[act], fl.vel[act])
+        e_w = rel_err(fb.omega[act], fl.omega[act])
+        name = str(dtype).split(".")[-1]
+        tol = LATTICE_TOL[name]
+        errs[name] = dict(force=e_f, torque=e_t, pos=e_p, vel=e_v,
+                          omega=e_w)
+        say(f"lattice vs binned [{name}], the bench bed after "
+            f"{LATTICE_SETTLE} binned steps: contact force {e_f:.3e} of "
+            f"its scale, torque {e_t:.3e}; after 2 x ({LATTICE_SUBSTEPS} "
+            f"substeps + a forced rebuild): pos {e_p:.3e}, vel {e_v:.3e}, "
+            f"omega {e_w:.3e} of scale (tol {tol})")
+        if max(e_f, e_t) > tol["force"] or max(e_p, e_v) > tol["traj"] \
+                or e_w > tol["omega"]:
+            fail(f"lattice: lattice and binned disagree in {name}")
+        del ps, pb, pl, fb, fl
+        torch.cuda.empty_cache()
+    out["vs_binned"] = errs
+
+    # -- the channel case loaded on the lattice --------------------------
+    sims = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        case = cases.write_channel_case(os.path.join(tmp, "channel"),
+                                        **cases.CHANNEL_FULL,
+                                        overlap=CASE_OVERLAP)
+        for backend in ("binned", "lattice"):
+            c, fl_, pa, _ = load_case(case, backend=backend,
+                                      dtype=torch.float64, capacity=8192,
+                                      device=dev)
+            sims[backend] = (c, Simulation(c, initialize(fl_, pa, c),
+                                           device=dev))
+        # run_case's 20 steps a visit on xiaocase3 at one substep a step
+        x3 = cases.write_xiaocase3(os.path.join(tmp, "xiaocase3"))
+        script = os.path.join(x3, "in.lammps")
+        with open(script) as f:
+            text = f.read()
+        with open(script, "w") as f:
+            f.write(text.replace("timestep        2e-7",
+                                 "timestep        2e-5"))
+        res = subprocess.run(
+            [sys.executable, "-m", "sedifoam_tpu_torch.run_case", x3,
+             "--backend", "lattice", "--f64", "--t-end", "2e-5"],
+            capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=600)
+    if res.returncode != 0:
+        fail(f"lattice: run_case --backend lattice exited "
+             f"{res.returncode}: {res.stderr[-2000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    c_l, sim_l = sims["lattice"]
+    t0 = time.perf_counter()
+    for c, sim in sims.values():
+        run_steps(sim, LATTICE_CHANNEL_STEPS)
+    t_run = time.perf_counter() - t0
+    st_b, st_l = sims["binned"][1].state, sim_l.state
+    check_finite(st_l, "lattice channel")
+    oa = torch.argsort(st_b.particles.tag)
+    ob = torch.argsort(st_l.particles.tag)
+    act = st_b.particles.active[oa]
+    e = {k: rel_err(getattr(st_b.particles, k)[oa][act],
+                    getattr(st_l.particles, k)[ob][act])
+         for k in ("pos", "vel")}
+    e_fluid = rel_err(st_b.fluid.Ub, st_l.fluid.Ub)
+    g_l = lattice.make_geom(c_l.dem)
+    n_un = unslotted(st_l, c_l)
+    out["channel"] = dict(M=c_l.dem.max_per_bin, unslotted=n_un, **e,
+                          Ub=e_fluid)
+    say(f"lattice: channel {cases.CHANNEL_FULL} loaded on the lattice: M "
+        f"{c_l.dem.max_per_bin} (the fullest bin + 2), nb {g_l.nb}, S "
+        f"{g_l.S}; {LATTICE_CHANNEL_STEPS} graphed steps (f64, both "
+        f"backends, {t_run:.1f} s with the captures): lattice_unslotted "
+        f"{n_un}; lattice vs binned by tag pos {e['pos']:.3e}, vel "
+        f"{e['vel']:.3e}, Ub {e_fluid:.3e} of scale (tol "
+        f"{LATTICE_CHANNEL_TOL}); run_case --backend lattice "
+        f"on xiaocase3 (on the card by default): {json.dumps(summary)}")
+    if n_un or max(e["pos"], e["vel"], e_fluid) > LATTICE_CHANNEL_TOL:
+        fail("lattice: the channel on the lattice disagrees with binned")
+    if summary["n_particles"] != 1:
+        fail(f"lattice: run_case summary {summary}")
+    launch_restore(counted)
+    del sims, st_b, st_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def counted_adds(dev):
     """Within the block, each add of particles (inject.add_particles,
@@ -2382,6 +2724,7 @@ def main():
     extras = phase_extras(dev)
     phase_dns(dev)
     bench = phase_bench(dev, k["floor_us"])
+    lattice = phase_lattice(dev)
     validate = phase_validate(dev)
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -2408,7 +2751,8 @@ def main():
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
         "library_ms": None, "wrapper_ms": k["ms"],
         "case_wrapper_ms": case["ms"], "case_plain_ms": case["plain_ms"],
-        "bench_rates": bench_rates, "shapes": k["shapes"],
+        "bench_rates": bench_rates, "lattice": lattice,
+        "shapes": k["shapes"],
         "graphs": GRAPHS, "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

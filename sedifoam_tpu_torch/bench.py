@@ -5,7 +5,8 @@ Runs the coupled bed case of ``bench_case`` (dense-contact DEM + PISO
 fluid + diffusion-smoothed coupling, f32) and reports particle DEM
 substeps per second.
 
-  python -m sedifoam_tpu_torch.bench [--small] [--backend=dense|binned]
+  python -m sedifoam_tpu_torch.bench [--small]
+        [--backend=dense|binned|lattice]
         [--device cpu] [--repeats N] [--sort-on-rebuild]
 
 On the card the step is the captured CUDA graph (solver.GraphedStep),
@@ -133,7 +134,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true",
                     help="256 particles on 8x16x8 cells, 3 timed steps")
-    ap.add_argument("--backend", default=None, choices=("dense", "binned"),
+    ap.add_argument("--backend", default=None,
+                    choices=("dense", "binned", "lattice"),
                     help="default: dense with --small, else binned")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; cpu to run "

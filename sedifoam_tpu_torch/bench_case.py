@@ -7,7 +7,9 @@ Full width: 131,072 particles at just-touching density (pitch 2.02 r),
 a 32x64x32 grid of 2 mm cells, K = 8 neighbor slots, max_per_bin 10,
 three plane walls, 10 DEM substeps per fluid step, ErgunWenYu drag,
 4-step diffusion smoothing, 2-corrector PISO. backend="dense" gives
-bench.py's default all-pairs variant (small sizes only).
+bench.py's default all-pairs variant (small sizes only);
+backend="lattice" the roll-based bin lattice (dem/lattice.py) with
+M = max_per_bin = 10 slots per bin, as bench.py builds it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from sedifoam_tpu_torch import bc, default_device
 from sedifoam_tpu_torch.config import (CloudConfig, DEMConfig, FluidConfig,
                                        PISOConfig, PairParams, WallSpec)
+from sedifoam_tpu_torch.dem import lattice
 from sedifoam_tpu_torch.dem.state import make_particles
 from sedifoam_tpu_torch.fluid.state import FluidBCs, init_fluid
 from sedifoam_tpu_torch.grid import Grid
@@ -95,8 +98,11 @@ def build_state(cfg: SimConfig, n_particles: int, dtype=torch.float32,
                                n_walls=len(cfg.dem.walls),
                                neighbor_k=(cfg.dem.nbr_k
                                            if cfg.dem.backend == "binned"
-                                           else None), dtype=dtype,
-                               device=device)
+                                           else None),
+                               lattice_geom=(lattice.make_geom(cfg.dem)
+                                             if cfg.dem.backend == "lattice"
+                                             else None),
+                               dtype=dtype, device=device)
     Ub = np.zeros((3,) + cfg.grid.shape)
     Ub[1] = 0.1
     fluid = init_fluid(cfg.grid, Ub=Ub, dtype=dtype, device=device)

@@ -28,10 +28,13 @@ class ParticleState(NamedTuple):
     force: torch.Tensor      # (N, 3) current total force (velocity-Verlet carry)
     torque: torch.Tensor     # (N, 3)
     # contact shear history: dense backend (3, N, N) per ordered pair,
-    # binned backend (3, K, N) per neighbor slot
+    # binned backend (3, K, N) per neighbor slot, lattice backend
+    # (3, NOFF, M, M, S) per (half offset, slot, partner slot, bin)
     shear: torch.Tensor
     wall_shear: torch.Tensor  # (3, W, N); W = number of wall fixes
-    nbr_idx: torch.Tensor       # (K, N) int32, == N empty; (0, N) when dense
+    # (K, N) int32, == N empty; (0, N) when dense; the lattice's (M, S)
+    # slot table when lattice
+    nbr_idx: torch.Tensor
     pos_at_build: torch.Tensor  # (N, 3) positions at last rebuild
     # fix fdrag state (fix_fluid_drag.cpp): constant fluid force over a
     # subcycle + per-substep added-mass bookkeeping
@@ -78,16 +81,19 @@ class ParticleState(NamedTuple):
 
 def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
                    tag=None, capacity: Optional[int] = None, n_walls: int = 6,
-                   neighbor_k: Optional[int] = None, mol=None,
-                   dtype=torch.float64, device=None) -> ParticleState:
+                   neighbor_k: Optional[int] = None, lattice_geom=None,
+                   mol=None, dtype=torch.float64,
+                   device=None) -> ParticleState:
     """Build a ParticleState from numpy inputs, padded to capacity.
 
-    neighbor_k: K of the binned (K, N) table; None gives the dense
-    backend's shapes ((3, N, N) shear, an empty (0, N) table). The
-    lattice backend is not ported.
+    neighbor_k: K of the binned (K, N) table; lattice_geom: the lattice
+    backend's dem.lattice.LatticeGeom, whose shapes shear and the slot
+    table then take; neither gives the dense backend's shapes ((3, N, N)
+    shear, an empty (0, N) table).
 
     mol: per-particle molecule ids (any positive labels; 0/None = free
-    sphere). Any id > 0 groups particles into rigid clumps (dem/rigid.py).
+    sphere). Any id > 0 groups particles into rigid clumps (dem/rigid.py),
+    on the dense and binned backends only.
     """
     pos = np.asarray(pos, dtype=np.float64).reshape(-1, 3)
     n = pos.shape[0]
@@ -124,6 +130,10 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
         np.asarray(mol, np.int64).ravel()
     displace = np.zeros((n, 3))
     if (mol_arr > 0).any():
+        if lattice_geom is not None:
+            raise NotImplementedError(
+                "rigid clumps (mol ids) are supported on the dense and "
+                "binned backends only")
         from sedifoam_tpu_torch.dem.rigid import make_rigid_bodies
         rigid, mol_arr, displace = make_rigid_bodies(
             pos, mass, radius, mol_arr, vel=vel, omega=omega, dtype=dtype,
@@ -131,6 +141,16 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
 
     def zeros(*shape, dt=None):
         return torch.zeros(shape, dtype=dt or dtype, device=device)
+
+    if lattice_geom is not None:
+        from sedifoam_tpu_torch.dem.lattice import geom_offsets
+        g = lattice_geom
+        shear = zeros(3, len(geom_offsets(g)), g.M, g.M, g.S)
+        table = (g.M, g.S)
+    else:
+        shear = zeros(3, capacity if neighbor_k is None else neighbor_k,
+                      capacity)
+        table = (neighbor_k or 0, capacity)
 
     return ParticleState(
         pos=pad2(pos),
@@ -144,11 +164,10 @@ def make_particles(pos, radius, density, vel=None, omega=None, ptype=None,
         active=torch.as_tensor(active, device=device),
         force=zeros(capacity, 3),
         torque=zeros(capacity, 3),
-        shear=zeros(3, capacity if neighbor_k is None else neighbor_k,
-                    capacity),
+        shear=shear,
         wall_shear=zeros(3, n_walls, capacity),
-        nbr_idx=torch.full((neighbor_k or 0, capacity), capacity,
-                           dtype=torch.int32, device=device),
+        nbr_idx=torch.full(table, capacity, dtype=torch.int32,
+                           device=device),
         pos_at_build=pad2(pos),
         fdrag=zeros(capacity, 3),
         dudt=zeros(capacity, 3),

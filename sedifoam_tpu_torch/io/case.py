@@ -548,8 +548,9 @@ def load_case(case_dir: str, capacity: Optional[int] = None,
     """Load a reference case -> (SimConfig, FluidState, ParticleState,
     CaseControls) with the state's tensors in `dtype` on `device` (by
     default the CUDA card; device="cpu" for the CPU).
-    backend: DEM contact backend ('dense' | 'binned'; the experimental
-    'lattice' backend is not ported).
+    backend: DEM contact backend ('dense' | 'binned' | 'lattice'; the
+    lattice's slots per bin M are sized to the initial packing: the
+    fullest bin + 2, at least 4).
 
     embed_ogrid: opt-in for O-grid cases (jetFlow): embed the mesh into
     its Cartesian bounding box (see read_block_mesh_embedded) instead of
@@ -558,11 +559,6 @@ def load_case(case_dir: str, capacity: Optional[int] = None,
     so it must be an explicit choice.
     """
     device = default_device(device)
-    if backend == "lattice":
-        raise NotImplementedError(
-            "load_case(backend='lattice'): the lattice DEM backend "
-            "(sedifoam_tpu/dem/lattice.py, experimental) is not ported by "
-            "design; use backend='binned' or 'dense'")
     sys_d = os.path.join(case_dir, "system")
     const_d = os.path.join(case_dir, "constant")
     zero_d = os.path.join(case_dir, "0")
@@ -862,6 +858,22 @@ def load_case(case_dir: str, capacity: Optional[int] = None,
     vel = None
     if lmp.initial_velocity is not None:
         vel = np.tile(np.asarray(lmp.initial_velocity), (n, 1))
+    lat_geom = None
+    if backend == "lattice":
+        from sedifoam_tpu_torch.dem import lattice as _lat
+        lat_geom = _lat.make_geom(dem_cfg)
+        # size M to the initial packing with headroom (overflowing a bin
+        # silently drops contacts; diagnostics reports lattice_unslotted);
+        # counted on the host, in the state's dtype
+        slot, _ = _lat.bin_slots(lat_geom, torch.as_tensor(lmp.pos,
+                                                           dtype=dtype),
+                                 torch.ones(n, dtype=torch.bool))
+        occ = int((slot < n).sum(dim=0).max())
+        m_needed = max(occ + 2, 4)   # headroom for local densification
+        if m_needed != lat_geom.M:
+            dem_cfg = dataclasses.replace(dem_cfg, max_per_bin=m_needed)
+            cfg = dataclasses.replace(cfg, dem=dem_cfg)
+            lat_geom = _lat.make_geom(dem_cfg)
     mol = lmp.mol if (lmp.rigid and lmp.mol is not None) else None
     if mol is not None and backend == "binned":
         # intra-body partners win the K-nearest selection but are
@@ -883,6 +895,7 @@ def load_case(case_dir: str, capacity: Optional[int] = None,
         pos=lmp.pos, radius=lmp.diameter / 2.0, density=lmp.density,
         vel=vel, ptype=lmp.ptype, tag=lmp.tag, mol=mol,
         capacity=capacity or n, n_walls=len(lmp.walls),
+        lattice_geom=lat_geom,
         neighbor_k=neighbor_k if backend == "binned" else None, dtype=dtype,
         device=device)
 

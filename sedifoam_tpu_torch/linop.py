@@ -79,6 +79,12 @@ class LinTerm:
                        self.rhs + delta * x)
 
 
+def zero_term(grid: Grid, dtype=torch.float64, device=None) -> LinTerm:
+    """The term that contributes nothing (diag, apply and rhs all 0)."""
+    z = torch.zeros(grid.shape, dtype=dtype, device=device)
+    return LinTerm(z, lambda x: torch.zeros_like(x), z)
+
+
 def _hom_patch(p):
     if isinstance(p, _bc.RegionPatchBC):
         return _bc.RegionPatchBC(_hom_patch(p.inside), _hom_patch(p.outside),
@@ -343,3 +349,14 @@ def laplacian(gamma_face, grid: Grid, fbc: _bc.FieldBC,
     # equation convention: apply(x) == rhs; the boundary-value pieces were
     # accumulated with the sign they need on the RHS already.
     return LinTerm(diag, apply_fn, rhs)
+
+
+def laplacian_flux(gamma_face, x, grid: Grid, fbc: _bc.FieldBC,
+                   phi: Optional[FaceField] = None, t=0.0) -> FaceField:
+    """fvMatrix::flux() of a laplacian matrix: gamma_f A_f snGrad(x) per
+    face."""
+    g = ops.sn_grad(x, grid, fbc, phi, t)
+    if not isinstance(gamma_face, FaceField):
+        gamma_face = FaceField(gamma_face, gamma_face, gamma_face)
+    return FaceField(*(gamma_face[a] * g[a] * grid.face_area_like(a, g[a])
+                       for a in range(3)))

@@ -15,8 +15,8 @@ run eagerly it reads the rule on the host once per iteration. `STATS`
 counts solves and iterations per solver on the device (a captured solve
 counts at every replay) and turns them into numbers when read.
 
-``pcg_multi`` is not ported: its one caller, the smoothing's PCG branch,
-is dead while the FastDiag smoothing is on (it always is in the port).
+``pcg_multi`` drives a batch of systems that share one operator (the
+smoothing's PCG branch, coupling/smoothing.py with USE_FASTDIAG off).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ class _Stats(Mapping):
     in place, so a captured step adds to the same pair at every replay)
     and summed on the host only when read."""
 
-    NAMES = ("pcg", "bicgstab")
+    NAMES = ("pcg", "pcg_multi", "bicgstab")
 
     def __init__(self):
         self.counters = {}
@@ -170,6 +170,66 @@ def pcg(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
             res0, res0, zero)
     x, r, p, rz, it, res, best, stall = graphs.while_loop(cond, body, init)
     STATS.add("pcg", it)
+    return SolveResult(x, res0, res, it)
+
+
+def pcg_multi(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
+              rel_tol: float = 0.0, max_iter: int = 1000) -> SolveResult:
+    """PCG for a batch of systems sharing one SPD operator.
+
+    b, x0: (B, ...) with the batch axis leading; apply_fn acts on a
+    single (...)-shaped field (the reference vmaps it; here it runs once
+    per system). One while_loop drives all B systems with per-system
+    step sizes; it stops when every system has converged, at max_iter,
+    after 10 iterations without a 0.1% improvement of the worst residual,
+    or on a non-finite residual.
+    """
+    tol = max(tol, _dtype_tol_floor(x0.dtype))
+    inv_diag = 1.0 / torch.where(diag == 0.0, torch.ones_like(diag), diag)
+    axes = tuple(range(1, x0.dim()))
+    bshape = (-1,) + (1,) * (x0.dim() - 1)
+
+    def vapply(x):
+        return torch.stack([apply_fn(x[i]) for i in range(x.shape[0])])
+
+    def dot(a, c):
+        return torch.sum(a * c, dim=axes)
+
+    nf = torch.stack([norm_factor(apply_fn, x0[i], b[i])
+                      for i in range(x0.shape[0])])
+    r0 = b - vapply(x0)
+    res0 = torch.sum(torch.abs(r0), dim=axes) / nf
+
+    def cond(state):
+        x, r, p, rz, it, res, best, stall = state
+        not_conv = torch.any((res > tol) & (res > rel_tol * res0))
+        return not_conv & (it < max_iter) & (stall < 10) & \
+            torch.all(torch.isfinite(res))
+
+    def body(state):
+        x, r, p, rz_old, it, _, best, stall = state
+        z = inv_diag[None] * r
+        rz = dot(r, z)
+        beta = torch.where(it == 0, torch.zeros_like(rz),
+                           _safe_ratio(rz, rz_old))
+        p = z + beta.reshape(bshape) * p
+        Ap = vapply(p)
+        alpha = _safe_ratio(rz, dot(p, Ap))
+        al = alpha.reshape(bshape)
+        x = x + al * p
+        r = r - al * Ap
+        res = torch.sum(torch.abs(r), dim=axes) / nf
+        worst = torch.max(res)
+        improved = worst < 0.999 * best
+        stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
+        best = torch.minimum(best, worst)
+        return (x, r, p, rz, it + 1, res, best, stall)
+
+    zero = torch.zeros((), dtype=torch.int32, device=x0.device)
+    init = (x0, r0, torch.zeros_like(x0), torch.ones_like(res0), zero,
+            res0, torch.max(res0), zero)
+    x, r, p, rz, it, res, best, stall = graphs.while_loop(cond, body, init)
+    STATS.add("pcg_multi", it)
     return SolveResult(x, res0, res, it)
 
 

@@ -236,6 +236,18 @@ def curl(v, grid: Grid, vbc: _bc.FieldBC, t=0.0):
     ])
 
 
+def laplacian(gamma_face, c, grid: Grid, fbc: _bc.FieldBC,
+              phi: Optional[FaceField] = None, t=0.0):
+    """Explicit fvc::laplacian(gamma, c); gamma_face is a FaceField or
+    scalar."""
+    g = sn_grad(c, grid, fbc, phi, t)
+    if not isinstance(gamma_face, FaceField):
+        gamma_face = FaceField(gamma_face, gamma_face, gamma_face)
+    out = sum(_face_diff(gamma_face[a] * g[a], a) * grid.face_area_like(a, c)
+              for a in range(3))
+    return out / grid.cell_volume_like(c)
+
+
 def flux_of(v, grid: Grid, vbc: _bc.FieldBC,
             phi: Optional[FaceField] = None, t=0.0) -> FaceField:
     """(interp(U) & Sf): volumetric flux of a vector field -> FaceField."""
@@ -276,6 +288,43 @@ def average_to_cells(fv: FaceField, grid: Grid,
 # ---------------------------------------------------------------------------
 # TVD limited convection weights (limitedLinear / limitedLinearV)
 # ---------------------------------------------------------------------------
+
+
+def _limited_weights_axis(c, gradc, axis, grid, fbc, phi, k):
+    """limitedLinear owner weights on the internal faces of `axis` for a
+    scalar cell field c with Gauss gradient gradc (3, ...); boundary
+    faces get weight 1 (unused: boundary convection takes the BC
+    coefficient path)."""
+    cm = _mv(c, axis)
+    gm = _mv(gradc[axis], axis)  # d c/d x_axis at cells
+    phim = _mv(phi[axis], axis)[1:-1]  # internal faces
+    w_lin, inv_d, _, _, _ = _axis_geom(grid, axis, cm)
+
+    phiP, phiN = cm[:-1], cm[1:]  # owner (lower), neighbor (upper)
+    gradf = phiN - phiP
+    # d is owner->neighbor = +axis * center distance; upwind by flux sign
+    gradcf = torch.where(phim > 0, gm[:-1], gm[1:]) / inv_d
+
+    big = torch.abs(gradcf) >= 1000.0 * torch.abs(gradf)
+    r = torch.where(
+        big,
+        2.0 * 1000.0 * _sign(gradcf) * _sign(gradf) - 1.0,
+        2.0 * (gradcf / torch.where(gradf == 0.0, torch.ones_like(gradf),
+                                    gradf)) - 1.0,
+    )
+    limiter = torch.clamp((2.0 / k) * r, 0.0, 1.0)
+    w_up = (phim >= 0).to(cm.dtype)
+    w = limiter * w_lin + (1.0 - limiter) * w_up
+    pad = torch.ones_like(cm[:1])
+    return _mvback(torch.cat([pad, w, pad], dim=0), axis)
+
+
+def limited_weights(c, grid: Grid, fbc: _bc.FieldBC, phi: FaceField,
+                    k: float = 1.0, t=0.0) -> FaceField:
+    """limitedLinear-k owner weights for fvm::div(phi, c) (scalar field)."""
+    gradc = grad(c, grid, fbc, phi, t)
+    return FaceField(*(_limited_weights_axis(c, gradc, a, grid, fbc, phi, k)
+                       for a in range(3)))
 
 
 def _limited_weights_axis_vec(v, gradv, axis, grid, phi, k):

@@ -6,6 +6,8 @@ Mirrors the reference's built-in per-step assertions/printouts:
 - dispersed-phase fraction stats (alphaEqn.H:53-57)
 - Courant numbers (CourantNo.H, alphaEqn.H relative-flux print)
 - average particle velocity (enhancedCloud::averageInfo, :1341-1370)
+- on the lattice DEM backend, the active particles no bin slot holds
+  (`lattice_unslotted`, 0 in a healthy run)
 
 `compute` returns a dict of 0-d tensors on the state's device and never
 syncs; the runner copies them to the host in one transfer per log.
@@ -81,7 +83,7 @@ def compute(state, grid: Grid, cfg: FluidConfig, dem_cfg=None
     audit_drift = torch.abs(asrc_y_plain - f_total[1]) / (
         stable_sum(torch.abs(terms), pol) + 1e-30)
 
-    return {
+    out = {
         "courant": co,
         "courant_rel": co_r,
         "alpha_mean": alpha_mean,
@@ -98,6 +100,12 @@ def compute(state, grid: Grid, cfg: FluidConfig, dem_cfg=None
         "continuity_err": torch.max(torch.abs(ops.div_flux(fs.phi, grid))),
         "audit_drift_asrc_y": audit_drift,
     }
+    if dem_cfg is not None and dem_cfg.backend == "lattice":
+        # lattice bins silently drop overflow particles from contacts;
+        # surface any unslotted actives (must stay 0 in a healthy run)
+        slotted = torch.sum(ps.nbr_idx < ps.n_capacity)
+        out["lattice_unslotted"] = torch.sum(ps.active) - slotted
+    return out
 
 
 def to_host(diag: Dict[str, torch.Tensor]) -> Dict[str, float]:

@@ -208,10 +208,21 @@ def test_xiaocase3_directory_is_the_built_case(case_dirs):
     assert_tree_close(bridge.tree_to_numpy(pb), bridge.tree_to_numpy(pt), 0.0)
 
 
-def test_lattice_backend_refused(case_dirs):
-    with pytest.raises(NotImplementedError, match="lattice"):
-        tcase.load_case(case_dirs["xiaocase3"], backend="lattice",
-                        device="cpu")
+def test_lattice_backend_refused(tmp_path):
+    """The lattice backend loads (tests/test_torch_lattice.py), but a
+    case of rigid clumps on it is refused, by both loaders alike: the
+    clumps run on the dense and binned backends only."""
+    path = cases.write_irregular_case(str(tmp_path / "irregular"),
+                                      n_clumps=30, counts=(9, 8, 6),
+                                      floor_d=0.002)
+    for load, kw in ((jcase.load_case, {}), (tcase.load_case,
+                                             {"device": "cpu"})):
+        with pytest.raises(NotImplementedError,
+                           match="rigid clumps .* dense and binned"), \
+                warnings.catch_warnings():
+            # the loader's K-cap warning of this shrunken bed
+            warnings.simplefilter("ignore")
+            load(path, backend="lattice", **kw)
 
 
 @pytest.mark.parametrize("name", ["LubricationParams", "CaseControls",

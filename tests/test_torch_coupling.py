@@ -208,11 +208,41 @@ def test_calc_omega_asrc_semi(case):
 
 
 def test_unported_cloud_options_raise(case):
-    """Through evolve, the lattice DEM backend still raises, naming its
-    config field. (Injection is ported: tests/test_torch_inject.py; the
-    semi-implicit drag: test_lift_drag_coeffs.)"""
-    _, cfg_t, _, st_t = case
-    dc = dataclasses.replace(cfg_t.dem, backend="lattice")
-    with pytest.raises(NotImplementedError, match="DEMConfig.backend"):
-        tcloud.evolve(st_t.fluid, st_t.particles, st_t.uf_smoothed,
-                      cfg_t.grid, cfg_t.bcs, cfg_t.cloud, dc, cfg_t.fluid)
+    """The lattice DEM backend is ported (tests/test_torch_lattice.py);
+    what the reference still refuses on it, the port refuses too: the
+    active window (its slice needs the binned (K, N) table) and the
+    contact and cohesion tables of dem/observables. (Injection is
+    ported: tests/test_torch_inject.py; the semi-implicit drag:
+    test_lift_drag_coeffs.)"""
+    from sedifoam_tpu.dem import lattice as jlat
+    from sedifoam_tpu.dem import observables as jobs
+    from sedifoam_tpu.dem.state import make_particles as jmake
+    from sedifoam_tpu.runtime import window as jwin
+    from sedifoam_tpu_torch.dem import lattice as tlat
+    from sedifoam_tpu_torch.dem import observables as tobs
+    from sedifoam_tpu_torch.dem.state import make_particles as tmake
+    from sedifoam_tpu_torch.runtime import window as twin
+    cfg_j, cfg_t, _, _ = case
+    rng = np.random.RandomState(31)
+    box = np.asarray(cfg_t.dem.domain_hi)
+    pos = rng.uniform(0.1 * box, 0.9 * box, size=(40, 3))
+    from sedifoam_tpu import config as jcfg
+    from sedifoam_tpu_torch import config as tcfg
+    for cfg, m, lat, obs, win, make, kw in (
+            (cfg_j, jcfg, jlat, jobs, jwin, jmake, {"dtype": jnp.float64}),
+            (cfg_t, tcfg, tlat, tobs, twin, tmake, {"device": "cpu"})):
+        dc = dataclasses.replace(cfg.dem, backend="lattice",
+                                 cohesion=m.CohesionParams(
+                                     ah=1e-19, lam=100e-9, smin=1e-9,
+                                     smax=1e-4, model=0))
+        ps = make(pos=pos, radius=2.5e-4, density=2500.0, capacity=48,
+                  n_walls=len(dc.walls), lattice_geom=lat.make_geom(dc),
+                  **kw)
+        with pytest.raises(NotImplementedError,
+                           match="binned backend's \\(K, N\\) table"):
+            win.window_slice(ps, 40)
+        for table in (obs.contact_table, obs.cohesion_table):
+            with pytest.raises(NotImplementedError,
+                               match="supports dense/binned, not "
+                                     "'lattice'"):
+                table(ps, dc)

@@ -126,10 +126,25 @@ def test_dense_matches_binned_on_one_state():
 
 
 def test_lattice_backend_still_raises():
-    cfg = tcfg.DEMConfig(dt=1e-6, backend="lattice")
-    st = particles_to_torch(_bed(seed=7))
-    with pytest.raises(NotImplementedError, match="DEMConfig.backend"):
-        tint.compute_forces(st, cfg)
+    """The lattice backend is ported, but cohesion and lubrication are
+    not wired on it: compute_forces refuses them with the reference's
+    message, as sedifoam_tpu's does."""
+    from sedifoam_tpu.dem import integrate as jint
+    from sedifoam_tpu.dem import lubrication as jlub
+    from sedifoam_tpu_torch.dem import lubrication as tlub
+    jst = _bed(seed=7)
+    st = particles_to_torch(jst)
+    for m, lub, integ, ps in ((jcfg, jlub, jint, jst),
+                              (tcfg, tlub, tint, st)):
+        for kw in ({"cohesion": m.CohesionParams(
+                        ah=1e-19, lam=100e-9, smin=1e-9, smax=1e-4,
+                        model=0)},
+                   {"lubrication": lub.LubricationParams(mu=1e-3)}):
+            cfg = m.DEMConfig(dt=1e-6, backend="lattice", **kw)
+            with pytest.raises(NotImplementedError,
+                               match="cohesion/lubrication are not wired "
+                                     "for the lattice"):
+                integ.compute_forces(ps, cfg)
 
 
 def test_deadterm_dense_case_three_steps_match_reference():

@@ -266,6 +266,7 @@ def test_stats_count_solves_and_iterations():
     assert tsolve.STATS["pcg"] == [3, sum(its)]
     assert tsolve.STATS["bicgstab"] == [0, 0]
     assert dict(tsolve.STATS) == {"pcg": [3, sum(its)],
+                                  "pcg_multi": [0, 0],
                                   "bicgstab": [0, 0]}
     tsolve.reset_stats()
     assert tsolve.STATS["pcg"] == [0, 0]
