@@ -163,9 +163,25 @@ which passes or exits nonzero:
    rebuilds; LATTICE_TOL); the channel loaded on both backends (f64,
    LATTICE_CHANNEL_STEPS graphed steps through Simulation, by tag); and
    run_case --backend lattice on xiaocase3;
+14c. sharded: the coupled step split over ranks (sedifoam_tpu_torch/
+   parallel/): the kernel on each half of the bench table's rows (f32,
+   f64) equal bit for bit to the whole launch and within 1e-5 / 1e-12
+   of scale of its plain version on the same rows, a half's device time
+   and bound; the bench bed with sort_on_rebuild on SHARDED_RANKS gloo
+   ranks sharing the card, SHARDED_STEPS steps of ShardedStep against
+   CoupledStep run eagerly here (the particles bit for bit after step 1,
+   every field within SHARDED_TOL = 1e-5 of scale after each step); the
+   same on one NCCL rank (bit for bit); the bed with its rows shuffled
+   and a rebuild every substep on the gloo ranks (particles change
+   ranks, bit for bit after the step); per rank the bytes of nbr_idx,
+   shear, wall_shear and pos (half of the whole), the collective bytes
+   per step, ms per step and the
+   kernel's launches (once a substep, on the rank's rows); each phase's
+   seconds in the last line before the output;
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, graph (from each case's
-   set-up on), runner, inject, case, clumps, extras, bench and validate,
+   set-up on), runner, inject, case, clumps, extras, bench, the sharded
+   ranks and validate,
    with the N and K it ran at,
    launches inside replayed graphs counted on the device; device time,
    bound, host time and floor per shape; its device time inside a
@@ -178,6 +194,7 @@ each capture's eager warm-up step.
 Imports nothing of JAX. Needs one card; builds into build/kernels/.
 """
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -441,24 +458,27 @@ def device_us(launch, reps=PROFILE_REPS):
     return t0.elapsed_time(t1) * 1e3 / reps, "CUDA graph", []
 
 
-def slots_within(p, periodic_len, gap=0.0):
+def slots_within(p, periodic_len, gap=0.0, rows=None):
     """The count of table slots of state p whose partner's surface is
-    closer than `gap` (0: touching), counted here from the positions."""
+    closer than `gap` (0: touching), counted here from the positions; of
+    the rows rows=(row0, n_rows) alone when given."""
     import torch
     n = p.n_capacity
-    idx = p.nbr_idx.long()
+    r0, nr = (0, n) if rows is None else rows
+    own = slice(r0, r0 + nr)
+    idx = p.nbr_idx[:, own].long()
     j = idx.clamp(0, n - 1)
-    d = p.pos[None] - p.pos[j]
+    d = p.pos[None, own] - p.pos[j]
     for a, L in enumerate(periodic_len or ()):
         if L is not None:
             d[..., a] -= L * torch.round(d[..., a] / L)
-    reach = p.radius[None] + p.radius[j] + gap
-    within = (idx >= 0) & (idx < n) & p.active[None] & \
+    reach = p.radius[None, own] + p.radius[j] + gap
+    within = (idx >= 0) & (idx < n) & p.active[None, own] & \
         ((d * d).sum(-1) < reach * reach)
     return int(within.sum())
 
 
-def chain_bound(p, walls, periodic_len):
+def chain_bound(p, walls, periodic_len, rows=None):
     """The least time one contact_chain call on state p could take on
     the card: each input byte read once, each output byte written once,
     over HBM's rate, against FLOPS_PER_CONTACT per contact over the
@@ -466,18 +486,22 @@ def chain_bound(p, walls, periodic_len):
     radius, mass, active), its (K,) index column, the shear written (3K
     values), the wall shear written (3W), force and torque; plus three
     values of history read for each touching slot and each touching
-    wall, counted from this state."""
+    wall, counted from this state. rows=(row0, n_rows): a launch on
+    those rows alone (their partners' rows in the other rows are not
+    counted: a boundary layer of a sorted bed)."""
     import torch
-    n, K, W = p.n_capacity, p.nbr_idx.shape[0], len(walls)
+    K, W = p.nbr_idx.shape[0], len(walls)
+    r0, n = (0, p.n_capacity) if rows is None else rows
+    own = slice(r0, r0 + n)
     b = p.pos.element_size()
-    pairs = slots_within(p, periodic_len)
+    pairs = slots_within(p, periodic_len, rows=rows)
     wall_contacts = 0
     for w in walls:
-        x = p.pos[:, w.axis]
+        x = p.pos[own, w.axis]
         lo = w.lo if w.lo is not None else -1e30
         hi = w.hi if w.hi is not None else 1e30
         da = torch.where(x - lo < hi - x, x - lo, x - hi)
-        wall_contacts += int((p.active & (da * da <= p.radius ** 2)
+        wall_contacts += int((p.active[own] & (da * da <= p.radius[own] ** 2)
                               & (da * da > 0)).sum())
     contacts = pairs + wall_contacts
     nbytes = n * (11 * b + 1 + 4 * K + 3 * K * b + 3 * W * b + 6 * b) + \
@@ -793,6 +817,7 @@ def phase_kernel(dev):
     res["floor_us"] = floor
     res["shapes"] = [measure_chain(label, q, dem, floor)
                      for label, q, dem in shapes]
+    res["bench_case"] = (cfg, p)
     return res
 
 
@@ -2581,6 +2606,249 @@ def phase_lattice(dev):
     return out
 
 
+SHARDED_STEPS = 3
+SHARDED_REBUILD_STEPS = 1  # of the bench bed rebuilt at every substep
+SHARDED_RANKS = 2
+SHARDED_TOL = 1e-5        # of each field's scale, where not bit for bit
+SHARDED_TIMEOUT = 600     # seconds a spawn of ranks may take
+TABLES = ("nbr_idx", "shear", "wall_shear", "pos")
+
+
+def nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def field_errs(a, b):
+    """{field: rel_err} over the floating fields of two SimStates, as
+    compare_states reads them (alpha*Ua for Ua)."""
+    skip = {"fluid.Ua", "fluid.Ua_old", "fluid.DDtUa"}
+    out = {}
+    pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+    pairs.append((("fluid.alpha*Ua", a.fluid.Uc), ("", b.fluid.Uc)))
+    for (name, x), (_, y) in pairs:
+        if name in skip or name.startswith("fluid.phia"):
+            continue
+        if x.is_floating_point() and bool((x != 0).any()):
+            out[name] = rel_err(x, y)
+    return out
+
+
+def phase_sharded(dev, k, smi):
+    """The coupled step split over ranks (sedifoam_tpu_torch/parallel/):
+    (a) the kernel on row ranges of the bench table: the two halves equal
+    the whole launch bit for bit (f32, f64) and agree with the plain
+    version on the same rows; a half's device time and bound; (b) the
+    bench bed with sort_on_rebuild on SHARDED_RANKS gloo ranks sharing
+    the card, SHARDED_STEPS steps of ShardedStep against CoupledStep run
+    eagerly here: the particles bit for bit after step 1, every field
+    within SHARDED_TOL of scale after each step; per-rank table bytes,
+    collective bytes, ms per step (gloo takes the CUDA tensors itself); (c) the same on one NCCL
+    rank: bit for bit after each step; (b') the bed of (b) with its rows
+    in a seeded random order and a rebuild at every substep (skin 0),
+    SHARDED_REBUILD_STEPS steps on SHARDED_RANKS gloo ranks: the sorted
+    rebuilds move particles between the ranks, and the particles stay bit
+    for bit. Returns the launches
+    of the ranks (the main path of the split step)."""
+    import numpy as np
+    import torch
+    from sedifoam_tpu_torch import bench_case, bridge
+    from sedifoam_tpu_torch.dem import fused
+    from sedifoam_tpu_torch.dem.neighbor import permute_particle_state
+    from sedifoam_tpu_torch.parallel.launch import run_ranks
+    from sedifoam_tpu_torch.parallel.step import TABLES, run_steps
+    from sedifoam_tpu_torch.solver import CoupledStep
+
+    # (a) the kernel on each half of the bench table's rows
+    cfg0, p = k["bench_case"]
+    d = cfg0.dem
+    walls, plen = d.walls, d.periodic_len()
+    n = p.n_capacity
+    half = n // 2
+    out = {"halves": {}}
+    counted = launch_snapshot()
+    for label, q in (("f32", p), ("f64", tree_map(
+            lambda t: t.double() if t.is_floating_point() else t, p))):
+        args = (d.pair, d.dt)
+        whole = fused._launch(tree_map(torch.clone, q), *args, q.nbr_idx,
+                              True, plen, walls)
+        tol = 1e-5 if label == "f32" else 1e-12
+        errs = {}
+        for r0 in (0, half):
+            own = slice(r0, r0 + half)
+
+            def block():
+                return q._replace(shear=q.shear[..., own].clone(),
+                                  wall_shear=q.wall_shear[..., own].clone())
+            idx = q.nbr_idx[:, own].contiguous()
+            got = fused._launch(block(), *args, idx, True, plen, walls,
+                                rows=(r0, half))
+            ref = fused.contact_chain_reference(block(), *args, idx, True,
+                                                plen, walls, rows=(r0, half))
+            for name, w, g, rf in zip(
+                    ("force", "torque", "shear", "wall_shear"), whole, got,
+                    ref):
+                part = w[own] if name in ("force", "torque") else w[..., own]
+                if not torch.equal(part, g):
+                    fail(f"sharded: the kernel on rows [{r0}, {r0 + half}) "
+                         f"({label}) differs from the whole launch in {name}")
+                errs[name] = max(errs.get(name, 0.0), rel_err(rf, g))
+        say(f"sharded [kernel rows {label}]: the halves [0, {half}) and "
+            f"[{half}, {n}) equal the whole launch bit for bit in force, "
+            "torque, shear and wall shear; against the plain version on "
+            "the same rows: " + ", ".join(f"{x} {v:.3e}"
+                                          for x, v in errs.items())
+            + f" (tol {tol:.0e})")
+        if max(errs.values()) > tol:
+            fail(f"sharded: a half of the rows disagrees with the plain "
+                 f"version ({label}): {errs}")
+        out["halves"][label] = errs
+    torch.cuda.synchronize()
+    clones = [(p._replace(shear=p.shear[..., half:].clone(),
+                          wall_shear=p.wall_shear[..., half:].clone()))
+              for _ in range(PROFILE_REPS)]
+    idx = p.nbr_idx[:, half:].contiguous()
+    us, how, _ = device_us(lambda r: fused._launch(
+        clones[r], d.pair, d.dt, idx, True, plen, walls,
+        rows=(half, half)))
+    bound = chain_bound(p, walls, plen, rows=(half, half))
+    launch_restore(counted)
+    out["rows_ms"] = us * 1e-3
+    out["rows_bound_ms"] = bound["bound_ms"]
+    say(f"sharded [kernel rows]: rows [{half}, {n}) of the bench table "
+        f"(f32): device {us:.2f} us ({how}, mean of {PROFILE_REPS}), bound "
+        f"{bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
+        f"({100 * bound['bound_ms'] * 1e3 / us:.1f}% of it; {smi})")
+    del clones
+
+    # (b) and (c): the bench bed split over ranks against one process
+    cfg = bench_case.build_config(**bench_case.FULL, sort_on_rebuild=True)
+    fluid, parts = bench_case.build_state(cfg, bench_case.FULL["n_particles"],
+                                          dtype=torch.float32, device=dev)
+    step = CoupledStep(cfg, dtype=torch.float32, device=dev)
+    state = step.initialize(fluid, parts)
+    snp = bridge.sim_state_to_numpy(state)
+    cfg_r = dataclasses.replace(cfg, dem=dataclasses.replace(cfg.dem,
+                                                              skin=0.0))
+
+    def one_process(step, n_steps, state):
+        out, ms = [], []
+        st = tree_map(torch.clone, state)
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = step(st)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(tree_map(lambda t: t.cpu(), st))
+        return out, ms
+    refs, ref_ms = one_process(step, SHARDED_STEPS, state)
+    # rows in a seeded random order: the first sorted rebuild moves them
+    order = torch.as_tensor(np.random.RandomState(11).permutation(
+        state.particles.n_capacity), device=dev)
+    shuffled = state._replace(particles=permute_particle_state(
+        state.particles, order))
+    snp_r = bridge.sim_state_to_numpy(shuffled)
+    refs_r, ref_ms_r = one_process(
+        CoupledStep(cfg_r, dtype=torch.float32, device=dev),
+        SHARDED_REBUILD_STEPS, shuffled)
+    del state, shuffled
+    say(f"sharded: one process, CoupledStep eagerly: "
+        + ", ".join(f"{m:.1f}" for m in ref_ms) + " ms a step; rebuilt at "
+        "every substep: " + ", ".join(f"{m:.1f}" for m in ref_ms_r)
+        + f" ms ({smi})")
+
+    def held(label, res, refs, bitwise):
+        # each rank launches the kernel once a substep, on its own rows
+        # (CPU ranks run its plain version)
+        expected = len(refs) * cfg.cloud.sub_cycles * cfg.cloud.sub_steps \
+            if dev.type == "cuda" else 0
+        states = [bridge.sim_state_from_numpy(res[0]["states"][i],
+                                              device="cpu")
+                  for i in sorted(res[0]["states"])]
+        for i, (got, ref) in enumerate(zip(states, refs), 1):
+            differ = fields_that_differ(ref, got)
+            if bitwise:
+                if differ:
+                    fail(f"sharded [{label}]: step {i} differs from the "
+                         f"one-process step in {differ}")
+                continue
+            if i == 1:
+                moved = [f for f in differ if f.startswith("particles.")]
+                if moved:
+                    fail(f"sharded [{label}]: after step 1 the particles "
+                         f"differ from the one-process step in {moved}")
+            errs = field_errs(ref, got)
+            misses = {f: e for f, e in errs.items() if e > SHARDED_TOL}
+            worst = max(errs, key=errs.get)
+            say(f"sharded [{label}] step {i}: {len(differ)} fields not bit "
+                f"for bit, worst {worst} {errs[worst]:.3e} of scale (tol "
+                f"{SHARDED_TOL:.0e})")
+            if misses:
+                fail(f"sharded [{label}]: step {i} misses the one-process "
+                     f"step: " + ", ".join(f"{f} {e:.3e}"
+                                           for f, e in misses.items()))
+        whole = {name: nbytes(getattr(refs[0].particles, name))
+                 for name in TABLES}
+        for r in res:
+            say(f"sharded [{label}] rank {r['rank']} on {r['device']} "
+                f"({r['backend']}): "
+                + ", ".join(f"{name} {r['tables'][name]} of {whole[name]} B"
+                            for name in TABLES)
+                + "; collective bytes per step " + ", ".join(
+                    json.dumps(c) for c in r["comm"])
+                + "; ms per step " + ", ".join(f"{m:.1f}" for m in r["ms"])
+                + f"; {r['launches']} kernel launches at "
+                f"{r['launch_sizes']} rows ({smi})")
+            if r["launches"] != expected:
+                fail(f"sharded [{label}]: rank {r['rank']} launched the "
+                     f"kernel {r['launches']} times, not {expected}")
+            for name in TABLES:
+                if r["tables"][name] * len(res) != whole[name]:
+                    fail(f"sharded [{label}]: rank {r['rank']} holds "
+                         f"{r['tables'][name]} B of {name}, not "
+                         f"1/{len(res)} of {whole[name]}")
+        moved = sum(len(set(r["tags_before"]) - set(r["tags_after"]))
+                    for r in res)
+        say(f"sharded [{label}]: {moved} particles changed ranks")
+        sizes = collections.Counter()
+        for r in res:
+            sizes.update(r["launch_sizes"])
+        return {"ranks": len(res), "moved": moved,
+                "launches": sum(r["launches"] for r in res),
+                "launch_sizes": dict(sizes),
+                "ms": [r["ms"] for r in res], "comm": res[0]["comm"],
+                "tables": res[0]["tables"]}
+
+    t0 = time.perf_counter()
+    res = run_ranks(run_steps, SHARDED_RANKS,
+                    args=(cfg, snp, SHARDED_STEPS), backend="gloo",
+                    device=dev, timeout=SHARDED_TIMEOUT)
+    say(f"sharded: {SHARDED_RANKS} gloo ranks sharing {dev} ran "
+        f"{SHARDED_STEPS} steps in {time.perf_counter() - t0:.1f} s of "
+        "wall time, process start-up included")
+    out["gloo"] = held("gloo x2", res, refs, bitwise=False)
+    t0 = time.perf_counter()
+    res = run_ranks(run_steps, 1, args=(cfg, snp, SHARDED_STEPS),
+                    backend="nccl", device=dev, timeout=SHARDED_TIMEOUT)
+    say(f"sharded: one NCCL rank ran {SHARDED_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s of wall time")
+    out["nccl"] = held("nccl x1", res, refs, bitwise=True)
+    res = run_ranks(run_steps, SHARDED_RANKS,
+                    args=(cfg_r, snp_r, SHARDED_REBUILD_STEPS),
+                    backend="gloo", device=dev, timeout=SHARDED_TIMEOUT)
+    out["rebuilt"] = held("gloo x2, a rebuild every substep", res, refs_r,
+                          bitwise=False)
+    if out["rebuilt"]["moved"] == 0:
+        fail("sharded: the rebuilds moved no particle between the ranks")
+    paths = [out[key] for key in ("gloo", "nccl", "rebuilt")]
+    out["launches"] = sum(path["launches"] for path in paths)
+    out["launch_sizes"] = dict(sum(
+        (collections.Counter(path["launch_sizes"]) for path in paths),
+        collections.Counter()))
+    out["ref_ms"] = ref_ms + ref_ms_r
+    return out
+
+
 @contextlib.contextmanager
 def counted_adds(dev):
     """Within the block, each add of particles (inject.add_particles,
@@ -2706,34 +2974,67 @@ def main():
     except ImportError:
         fail("torch is not importable")
     smi = phase_environment()
+    marks = [time.perf_counter()]
+    names = []
+
+    def mark(name):
+        names.append(name)
+        marks.append(time.perf_counter())
+
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
+    mark("build")
     k = phase_kernel(dev)
+    mark("kernel")
     launches = phase_main_path(dev)
+    mark("main_path")
     graph_ran = phase_graph(dev)
+    mark("graph")
     launches += phase_runner(dev)
+    mark("runner")
     inject_launches, by_n = phase_inject(dev)
+    mark("inject")
     launches += inject_launches
     phase_dense(dev)
+    mark("dense")
     case = phase_case(dev)
+    mark("case")
     launches += case["launches"]
     phase_case_jetflow(dev)
+    mark("case_jetflow")
     phase_entry(dev)
+    mark("entry")
     clumps = phase_clumps(dev)
+    mark("clumps")
     extras = phase_extras(dev)
+    mark("extras")
     phase_dns(dev)
+    mark("dns")
     bench = phase_bench(dev, k["floor_us"])
+    mark("bench")
     lattice = phase_lattice(dev)
+    mark("lattice")
+    sharded = phase_sharded(dev, k, smi)
+    mark("sharded")
     validate = phase_validate(dev)
+    mark("validate")
     say(f"chip_smoke: every phase passed in "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t_start:.1f} s (" + ", ".join(
+            f"{n} {b - a:.1f}" for n, a, b in zip(names, marks, marks[1:]))
+        + " s)")
     say(smi)
     ran_at = [{"N": 131072, "K": 8, "launches": launches - inject_launches
                - case["launches"]}]
     ran_at += [{"N": n, "K": 8, "launches": c} for n, c in by_n.items()]
     ran_at += graph_ran
     launches += sum(r["launches"] for r in graph_ran)
+    # the split step's ranks: launches on their own rows, in their
+    # processes, by the rows each launch computed (as the ranks counted)
+    ran_at += [{"N": 131072, "rows": rows, "K": 8, "launches": c,
+                "path": "sharded"}
+               for rows, c in sorted(sharded["launch_sizes"].items())]
+    launches += sharded["launches"]
     paths = (case, clumps, extras, bench) + tuple(validate.values())
     for path in paths:
         ran_at += [{"N": n, "K": path["K"], "launches": c}
@@ -2752,6 +3053,10 @@ def main():
         "library_ms": None, "wrapper_ms": k["ms"],
         "case_wrapper_ms": case["ms"], "case_plain_ms": case["plain_ms"],
         "bench_rates": bench_rates, "lattice": lattice,
+        "rows_ms": sharded["rows_ms"],
+        "rows_bound_ms": sharded["rows_bound_ms"],
+        "sharded": {key: sharded[key] for key in ("gloo", "nccl",
+                                                  "rebuilt", "ref_ms")},
         "shapes": k["shapes"],
         "graphs": GRAPHS, "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {

@@ -17,6 +17,11 @@ With injection on, each subcycle first runs inject.maybe_add_delete. Its
 a captured step): whether an add fired and whether the delete box
 removed anyone stay on the device; an eager step reads them on the host
 (inject.SYNCS counts those reads).
+
+`shard` (parallel/mesh.Shard, None for the whole state): the particles
+are one rank's own block of rows of a step split over ranks (the fluid
+is whole on every rank); the DEM and the particle-to-grid scatters take
+it (dem/integrate.py, transfer.py).
 """
 
 from __future__ import annotations
@@ -47,8 +52,8 @@ def _smooth_fn(grid: Grid, ccfg: CloudConfig, solver=None):
                    direction=ccfg.smooth_direction, solver=solver)
 
 
-def _delete_outside(state: ParticleState, grid: Grid, dcfg: DEMConfig
-                    ) -> ParticleState:
+def _delete_outside(state: ParticleState, grid: Grid, dcfg: DEMConfig,
+                    shard=None) -> ParticleState:
     """Deactivate particles that left the fluid domain (OpenFOAM deletes
     them on wall-patch hit during Cloud::move). Periodic axes never
     delete — particles wrap instead.
@@ -64,13 +69,16 @@ def _delete_outside(state: ParticleState, grid: Grid, dcfg: DEMConfig
         if not dcfg.periodic[a]:
             inside &= (state.pos[:, a] >= lo[a]) & (state.pos[:, a] <= hi[a])
     state = state._replace(active=state.active & inside)
-    return _dem.scrub_deactivated(state, dcfg)
+    if shard is not None:
+        shard.set_active(state.active)
+    return _dem.scrub_deactivated(state, dcfg, shard)
 
 
 def evolve(fluid: FluidState, particles: ParticleState,
            uf_smoothed_old, grid: Grid, bcs: FluidBCs,
            ccfg: CloudConfig, dcfg: DEMConfig, fcfg: FluidConfig,
-           smoother=None) -> Tuple[FluidState, ParticleState, torch.Tensor]:
+           smoother=None, shard=None
+           ) -> Tuple[FluidState, ParticleState, torch.Tensor]:
     """One full evolve(). Returns (fluid', particles', UfSmoothed).
     `smoother` is the prebuilt smoothing FastDiag (built when None)."""
     smooth = _smooth_fn(grid, ccfg, smoother)
@@ -135,14 +143,16 @@ def evolve(fluid: FluidState, particles: ParticleState,
         # reads it before the next particle_forces
         particles = particles._replace(fdrag=p_drag, dudt=p_dudt,
                                        vel_fluid_old=particles.vel)
-        particles = _dem.run_dem(particles, dcfg, ccfg.sub_steps, t0=0.0)
+        particles = _dem.run_dem(particles, dcfg, ccfg.sub_steps, t0=0.0,
+                                 shard=shard)
 
         if ccfg.delete_outside:
-            particles = _delete_outside(particles, grid, dcfg)
+            particles = _delete_outside(particles, grid, dcfg, shard)
 
         if k == 0:
             alpha, Ua = _transfer.particle_to_eulerian(
-                particles, grid, smooth, ccfg.alpha_smooth, ccfg.up_smooth)
+                particles, grid, smooth, ccfg.alpha_smooth, ccfg.up_smooth,
+                shard)
 
     fluid = fluid._replace(alpha=alpha, Ua=Ua)
     return fluid, particles, uf_smoothed
@@ -151,7 +161,7 @@ def evolve(fluid: FluidState, particles: ParticleState,
 def lift_drag_coeffs(fluid: FluidState, particles: ParticleState,
                      uf_smoothed, grid: Grid, bcs: FluidBCs,
                      ccfg: CloudConfig, fcfg: FluidConfig,
-                     smoother=None) -> FluidState:
+                     smoother=None, shard=None) -> FluidState:
     """liftDragCoeffs.H + calcTcFields: alpha cap, Asrc, lift coefficient
     (and the implicit drag coefficient Omega with the semi-implicit drag)."""
     smooth = _smooth_fn(grid, ccfg, smoother)
@@ -174,11 +184,11 @@ def lift_drag_coeffs(fluid: FluidState, particles: ParticleState,
         # momentum diagonal makes stiff gas-solid drag unconditionally
         # stable; Asrc carries omg*U_p through the flux
         drag_coef, asrc = _transfer.calc_omega_asrc_semi(
-            particles, jd_vals, grid)
+            particles, jd_vals, grid, shard)
     else:
         asrc = _transfer.calc_asrc(particles, jd_vals, uf_smoothed, alpha,
                                    grid, smooth, ccfg.drag_smooth,
-                                   uf_at_p=uf_at_p)
+                                   uf_at_p=uf_at_p, shard=shard)
         # Omega_ *= 0 (enhancedCloud.C:391): implicit drag disabled
         drag_coef = torch.zeros_like(alpha)
 

@@ -11,6 +11,13 @@ and Asrc that a packed bed amplifies to 3e-4 of the contact forces'
 scale within 6 coupled steps (H100), so two runs, or a run and its
 resume from a checkpoint, would not repeat. With the sorted sum a run
 repeats bit for bit on the card too (tests/test_torch_cuda.py).
+
+In a step split over ranks (`shard`, parallel/mesh.Shard) each rank
+scatters its own rows into a partial grid, and the partials are summed
+over the ranks (shard.comm.all_reduce_sum): the sum runs in another
+order than one rank's sorted sum, so the fields agree with it to
+round-off. The gathers need no exchange: the grid is whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -46,21 +53,29 @@ def _segment_sum(w, cells, n_cells):
     return out.index_put_((cells,), w, accumulate=True)
 
 
-def scatter_to_grid(values, cells, active, grid: Grid):
-    """sum_p values_p -> host cells. values: (N,) or (N,3)."""
+def _reduced(flat, shard):
+    """flat summed over the ranks of a split step (as it is without)."""
+    return flat if shard is None else shard.comm.all_reduce_sum(flat)
+
+
+def scatter_to_grid(values, cells, active, grid: Grid, shard=None):
+    """sum_p values_p -> host cells. values: (N,) or (N,3); with a shard,
+    summed over the ranks' rows too."""
     if values.ndim == 2:
         w = torch.where(active[:, None], values, torch.zeros_like(values))
-        flat = _segment_sum(w, cells, grid.n_cells)
+        flat = _reduced(_segment_sum(w, cells, grid.n_cells), shard)
         return torch.movedim(flat, -1, 0).reshape((values.shape[1],)
                                                   + grid.shape)
     w = torch.where(active, values, torch.zeros_like(values))
-    return _segment_sum(w, cells, grid.n_cells).reshape(grid.shape)
+    return _reduced(_segment_sum(w, cells, grid.n_cells),
+                    shard).reshape(grid.shape)
 
 
-def scatter_fields(cells, active, grid: Grid, *values):
+def scatter_fields(cells, active, grid: Grid, *values, shard=None):
     """ONE scatter for several per-particle fields at the same cells.
 
-    values: each (N,) or (N,3); packed into one (N, C) scatter-add.
+    values: each (N,) or (N,3); packed into one (N, C) scatter-add (with
+    a shard, summed over the ranks' rows in one exchange).
     Returns one grid field per input ((nx,ny,nz) or (3,nx,ny,nz))."""
     cols, splits = [], []
     for v in values:
@@ -72,7 +87,7 @@ def scatter_fields(cells, active, grid: Grid, *values):
             splits.append(0)          # 0 marks "scalar"
     packed = torch.cat(cols, dim=1)
     w = torch.where(active[:, None], packed, torch.zeros_like(packed))
-    flat = _segment_sum(w, cells, grid.n_cells)
+    flat = _reduced(_segment_sum(w, cells, grid.n_cells), shard)
     out, o = [], 0
     for s in splits:
         if s == 0:
@@ -120,8 +135,8 @@ def gather_fields(cells, *fields):
 
 
 def particle_to_eulerian(state: ParticleState, grid: Grid,
-                         smooth_fn, alpha_smooth: bool, up_smooth: bool
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         smooth_fn, alpha_smooth: bool, up_smooth: bool,
+                         shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """particleToEulerianField (enhancedCloud.C:911-980).
 
     Returns (gamma, Ue): solid volume fraction and ensemble solid velocity.
@@ -132,7 +147,7 @@ def particle_to_eulerian(state: ParticleState, grid: Grid,
     V = grid.cell_volume_like(vol)
 
     gamma, Ue = scatter_fields(cells, state.active, grid,
-                               vol, vol[:, None] * state.vel)
+                               vol, vol[:, None] * state.vel, shard=shard)
     gamma = gamma / V
     Ue = Ue / V
 
@@ -153,7 +168,7 @@ def particle_to_eulerian(state: ParticleState, grid: Grid,
 
 
 def calc_asrc(state: ParticleState, jd_vals, uf_smoothed, gamma, grid: Grid,
-              smooth_fn, drag_smooth: bool, uf_at_p=None):
+              smooth_fn, drag_smooth: bool, uf_at_p=None, shard=None):
     """calcTcFields (enhancedCloud.C:316-441): the explicit particle->fluid
     momentum source Asrc [kg m^-2 s^-2].
 
@@ -167,7 +182,7 @@ def calc_asrc(state: ParticleState, jd_vals, uf_smoothed, gamma, grid: Grid,
     if uf_at_p is None:
         uf_at_p = gather_from_grid(uf_smoothed, cells)
     contrib = omg[:, None] * (state.vel - uf_at_p)
-    asrc = scatter_to_grid(contrib, cells, state.active, grid)
+    asrc = scatter_to_grid(contrib, cells, state.active, grid, shard)
 
     one_minus = 1.0 - gamma
     asrc = asrc * one_minus[None]
@@ -178,7 +193,8 @@ def calc_asrc(state: ParticleState, jd_vals, uf_smoothed, gamma, grid: Grid,
     return asrc / denom[None]
 
 
-def calc_omega_asrc_semi(state: ParticleState, jd_vals, grid: Grid):
+def calc_omega_asrc_semi(state: ParticleState, jd_vals, grid: Grid,
+                         shard=None):
     """Semi-implicit coupling fields (enhancedCloud.C:338-360):
     Omega = sum_p omg, Asrc = sum_p omg*U_p (no smoothing in the
     reference's branch)."""
@@ -186,7 +202,7 @@ def calc_omega_asrc_semi(state: ParticleState, jd_vals, grid: Grid):
     V = cell_volume_at(cells, grid, jd_vals)
     omg = state.volume * jd_vals / V
     omega, asrc = scatter_fields(cells, state.active, grid,
-                                 omg, omg[:, None] * state.vel)
+                                 omg, omg[:, None] * state.vel, shard=shard)
     return omega, asrc
 
 

@@ -67,6 +67,15 @@
 // both are UPDATED IN PLACE, each element by the one thread that owns its
 // (slot, particle). Force and torque are written as (N, 3).
 //
+// Own rows. A launch computes the rows [row0, row0 + n_rows) of the n
+// rows of pos, vel, omega, radius, mass and active (one rank's block of
+// a state split over ranks, parallel/mesh.py): own row i is row row0 + i
+// there, partners are read there by their index in nbr_idx (n marks an
+// empty slot), and nbr_idx (K, n_rows), shear (3, K, n_rows), wall shear
+// (3, W, n_rows), force and torque (n_rows, 3) hold the own rows alone.
+// A whole launch is row0 = 0, n_rows = n. A row's result reads only its
+// own inputs, in a fixed order, so it does not depend on the range.
+//
 // Numerics. Templated on float and double. Built without FMA contraction
 // (--fmad=false) so the f32 rounding follows the plain version op for op.
 // Rounding to the nearest integer uses rint (half to even, as torch.round
@@ -103,6 +112,7 @@ struct WallParams {
 
 struct ChainParams {
   int64_t n, K, W, shearupdate;
+  int64_t row0, n_rows;  // the own rows: [row0, row0 + n_rows) of n
   int64_t periodic[3];
   double plen[3];
   double dt;
@@ -362,8 +372,11 @@ chain_kernel(const __grid_constant__ ChainParams p,
              const int32_t* __restrict__ nbr_idx, T* __restrict__ shear, T* __restrict__ wall_shear,
              T* __restrict__ force, T* __restrict__ torque) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t n = p.n, K = p.K, W = p.W;
+  // n: the stride of the own arrays; own row i is row row0 + i of the
+  // row arrays (pos ... active)
+  const int64_t n = p.n_rows, K = p.K, W = p.W, row0 = p.row0;
   const int64_t i0 = (int64_t)blockIdx.x * TILE, i = i0 + lane;
+  const int64_t gi = row0 + i;
   const bool live = i < n;
   const bool su = p.shearupdate != 0;
   const T dt = (T)p.dt;
@@ -390,26 +403,27 @@ chain_kernel(const __grid_constant__ ChainParams p,
   bool acti;
   if constexpr (S == 1) {  // one warp: each lane reads its own row itself
     for (int c = 0; c < 3; ++c) {
-      xi[c] = live ? pos[3 * i + c] : (T)0;
-      vi[c] = live ? vel[3 * i + c] : (T)0;
-      wi[c] = live ? omega[3 * i + c] : (T)0;
+      xi[c] = live ? pos[3 * gi + c] : (T)0;
+      vi[c] = live ? vel[3 * gi + c] : (T)0;
+      wi[c] = live ? omega[3 * gi + c] : (T)0;
     }
-    radi = live ? radius[i] : (T)0;
-    mi = live ? mass[i] : (T)0;
-    acti = live && active[i];
+    radi = live ? radius[gi] : (T)0;
+    mi = live ? mass[gi] : (T)0;
+    acti = live && active[gi];
   } else {  // the block's own rows, read once, coalesced
     for (int e = threadIdx.x; e < 3 * TILE; e += S * 32) {
       const int64_t g = 3 * i0 + e;
       const bool ok = g < 3 * n;
+      const int64_t gg = 3 * row0 + g;
       const int l = e / 3, c = e - 3 * l;
-      own[c * TILE + l] = ok ? pos[g] : (T)0;
-      own[(4 + c) * TILE + l] = ok ? vel[g] : (T)0;
-      own[(8 + c) * TILE + l] = ok ? omega[g] : (T)0;
+      own[c * TILE + l] = ok ? pos[gg] : (T)0;
+      own[(4 + c) * TILE + l] = ok ? vel[gg] : (T)0;
+      own[(8 + c) * TILE + l] = ok ? omega[gg] : (T)0;
     }
     if (warp == 0) {
-      own[3 * TILE + lane] = live ? radius[i] : (T)0;
-      own[7 * TILE + lane] = live ? mass[i] : (T)0;
-      act[lane] = live && active[i];
+      own[3 * TILE + lane] = live ? radius[gi] : (T)0;
+      own[7 * TILE + lane] = live ? mass[gi] : (T)0;
+      act[lane] = live && active[gi];
     }
     __syncthreads();
     for (int c = 0; c < 3; ++c) {
@@ -557,7 +571,7 @@ static int64_t resident_threads() {
   return resident;
 }
 
-// Slot warps per block for n particles: 8, else 4, while n S chains fit
+// Slot warps per block for n own rows: 8, else 4, while n S chains fit
 // on the card at once; else 1, where one thread a particle keeps the card
 // busy and the round tiles would only cost (measured on an H100:
 // PERF.md).
@@ -575,7 +589,7 @@ static void launch_chain(const ChainParams* p, const T* pos, const T* vel,
                          const bool* active, const int32_t* nbr_idx,
                          T* shear, T* wall_shear, T* force, T* torque,
                          cudaStream_t s) {
-  chain_kernel<T, S><<<(unsigned)((p->n + TILE - 1) / TILE), S * 32,
+  chain_kernel<T, S><<<(unsigned)((p->n_rows + TILE - 1) / TILE), S * 32,
                        chain_smem_bytes<T>(S, p->W), s>>>(
       *p, pos, vel, omega, radius, mass, active, nbr_idx, shear,
       wall_shear, force, torque);
@@ -586,10 +600,12 @@ static int launch(const ChainParams* p, const T* pos, const T* vel,
                   const T* omega, const T* radius, const T* mass,
                   const bool* active, const int32_t* nbr_idx, T* shear,
                   T* wall_shear, T* force, T* torque, void* stream) {
-  if (p->n <= 0) return 0;
-  if (p->W < 0 || p->W > MAX_WALLS) return (int)cudaErrorInvalidValue;
+  if (p->n_rows <= 0) return 0;
+  if (p->W < 0 || p->W > MAX_WALLS || p->row0 < 0 ||
+      p->row0 + p->n_rows > p->n)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (slot_warps<T>(p->n)) {
+  switch (slot_warps<T>(p->n_rows)) {
     case 8:
       launch_chain<T, 8>(p, pos, vel, omega, radius, mass, active, nbr_idx,
                          shear, wall_shear, force, torque, s);

@@ -13,9 +13,16 @@ are updated in place. The source's note gives its bound and its design.
 kernel (or raises); on a CPU tensor, and only there, it runs
 ``contact_chain_reference``, the plain PyTorch version of the same
 function (``neighbor.pair_forces_binned`` + ``walls.wall_forces``).
+Both take ``rows=(row0, n_rows)``: the rows [row0, row0 + n_rows) of the
+state's row arrays (pos, vel, omega, radius, mass, active: all N rows)
+are computed, against partners anywhere in them, and the table, the
+histories and the outputs are those rows' alone ((K, n_rows), (3, K,
+n_rows), (3, W, n_rows), (n_rows, 3)). That is one rank's block of a
+state split over ranks (``parallel/``); ``rows=None`` is all N rows.
 ``LAUNCHES`` counts kernel launches, so a run can show that its main
-path went through the kernel; ``LAUNCH_SIZES`` counts them by particle
-count N (the runner's active window launches it at several N). A launch
+path went through the kernel; ``LAUNCH_SIZES`` counts them by the rows
+a launch computes (N, or n_rows of a row range; the runner's active
+window launches it at several N). A launch
 inside a captured CUDA graph (graphs.StepGraph) happens at every replay
 of the graph, not where the wrapper runs: there the wrapper captures one
 more kernel, which adds one to a counter on the device beside the
@@ -38,6 +45,7 @@ from sedifoam_tpu_torch.config import (PAIR_HERTZ_HISTORY, PAIR_HOOKE,
                                        PairParams)
 from sedifoam_tpu_torch.dem.forcelaws import _SQRT56, hertz_beta
 from sedifoam_tpu_torch.dem.neighbor import pair_forces_binned
+from sedifoam_tpu_torch.dem.pair import own
 from sedifoam_tpu_torch.dem.state import ParticleState
 from sedifoam_tpu_torch.dem.walls import wall_forces
 
@@ -116,6 +124,7 @@ class _Wall(ctypes.Structure):
 class _Chain(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int64), ("K", ctypes.c_int64),
                 ("W", ctypes.c_int64), ("shearupdate", ctypes.c_int64),
+                ("row0", ctypes.c_int64), ("n_rows", ctypes.c_int64),
                 ("periodic", ctypes.c_int64 * 3),
                 ("plen", ctypes.c_double * 3), ("dt", ctypes.c_double),
                 ("pair", _Law), ("walls", _Wall * MAX_WALLS)]
@@ -128,28 +137,39 @@ def walls_fusible(walls) -> bool:
                and w.vshear == 0.0 for w in walls)
 
 
+def own_rows(state: ParticleState, rows) -> ParticleState:
+    """The state with its row arrays (pos, vel, omega, radius, mass,
+    active) cut to rows=(row0, n_rows); the rest as it is."""
+    return state._replace(**{k: own(getattr(state, k), rows) for k in (
+        "pos", "vel", "omega", "radius", "mass", "active")})
+
+
 def contact_chain_reference(state: ParticleState, params: PairParams,
                             dt: float, idx, shearupdate: bool = True,
-                            periodic_len=None, walls=()):
+                            periodic_len=None, walls=(), rows=None):
     """Plain PyTorch version of the kernel: the binned pair chain plus,
     when `walls` is non-empty, the plane-wall pass.
 
     Returns (force (N,3), torque (N,3), new_shear (3,K,N), new_wall_shear
     (3,W,N) or None when `walls` is empty), as the reference's
-    pair_forces_binned_fused does.
+    pair_forces_binned_fused does; with rows=(row0, n_rows), those rows'
+    alone (n_rows in place of N; see the module's docstring).
     """
     force, torque, shear = pair_forces_binned(state, params, dt, idx,
-                                              shearupdate, periodic_len)
+                                              shearupdate, periodic_len,
+                                              rows=rows)
     wall_shear = None
     if walls:
-        fw, tw, wall_shear = wall_forces(state, walls, dt, 0.0, shearupdate)
+        fw, tw, wall_shear = wall_forces(own_rows(state, rows), walls, dt,
+                                         0.0, shearupdate)
         force = force + fw
         torque = torque + tw
     return force, torque, shear, wall_shear
 
 
 def contact_chain(state: ParticleState, params: PairParams, dt: float, idx,
-                  shearupdate: bool = True, periodic_len=None, walls=()):
+                  shearupdate: bool = True, periodic_len=None, walls=(),
+                  rows=None):
     """The contact chain: the kernel for CUDA tensors, the plain version
     for CPU tensors. Same signature and returns as
     contact_chain_reference. On CUDA, state.shear and (with walls)
@@ -157,10 +177,11 @@ def contact_chain(state: ParticleState, params: PairParams, dt: float, idx,
     dev = state.pos.device.type
     if dev == "cpu":
         return contact_chain_reference(state, params, dt, idx, shearupdate,
-                                       periodic_len, walls)
+                                       periodic_len, walls, rows)
     if dev != "cuda":
         raise ValueError(f"contact_chain: unsupported device {dev!r}")
-    return _launch(state, params, dt, idx, shearupdate, periodic_len, walls)
+    return _launch(state, params, dt, idx, shearupdate, periodic_len, walls,
+                   rows)
 
 
 def _law(p: PairParams) -> _Law:
@@ -173,15 +194,17 @@ def _law(p: PairParams) -> _Law:
                 c_damp, max(p.kt, 1e-300))
 
 
-def _params(n, K, dt, shearupdate, periodic_len, params, walls) -> _Chain:
+def _params(n, K, dt, shearupdate, periodic_len, params, walls,
+            rows=None) -> _Chain:
     if len(walls) > MAX_WALLS:
         raise ValueError(f"at most {MAX_WALLS} fused walls, got {len(walls)}")
     if not walls_fusible(walls):
         raise ValueError("only static plane walls fuse into the kernel")
     plen = tuple(periodic_len) if periodic_len is not None \
         else (None, None, None)
+    row0, n_rows = row_range(n, rows)
     cp = _Chain(n=n, K=K, W=len(walls), shearupdate=int(bool(shearupdate)),
-                dt=dt, pair=_law(params))
+                row0=row0, n_rows=n_rows, dt=dt, pair=_law(params))
     for a in range(3):
         cp.periodic[a] = int(plen[a] is not None)
         cp.plen[a] = float(plen[a]) if plen[a] is not None else 0.0
@@ -194,7 +217,7 @@ def _params(n, K, dt, shearupdate, periodic_len, params, walls) -> _Chain:
 
 
 # the parameter block of each (n, K, dt, shearupdate, periodic_len,
-# params, walls) seen, built once: all are numbers, tuples or frozen
+# params, walls, rows) seen, built once: all are numbers, tuples or frozen
 # dataclasses. The kernel reads the block only during its launch.
 _chain_params = functools.lru_cache(maxsize=256)(_params)
 
@@ -235,43 +258,60 @@ def _library():
     return lib
 
 
-def check_inputs(state, idx, n_walls):
+def row_range(n, rows):
+    """rows=(row0, n_rows) as two ints inside [0, n); None: all n rows."""
+    if rows is None:
+        return 0, n
+    row0, n_rows = (int(r) for r in rows)
+    if row0 < 0 or n_rows < 0 or row0 + n_rows > n:
+        raise ValueError(f"contact_chain: rows [{row0}, {row0 + n_rows}) "
+                         f"outside the {n} rows of the state")
+    return row0, n_rows
+
+
+def check_inputs(state, idx, n_walls, rows=None):
     """Raise unless the kernel can take these tensors: one float dtype
-    (f32 or f64) on one device, the state's shapes, contiguous."""
+    (f32 or f64) on one device, the state's shapes, contiguous. The row
+    arrays have all N rows; the table and the histories the own rows'
+    (rows=(row0, n_rows); N of them when None)."""
     x = state.pos
     dtype, device = x.dtype, x.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"contact_chain: no kernel for dtype {dtype}")
     n = state.n_capacity
+    nr = row_range(n, rows)[1]
     K = idx.shape[0]
     for name in ("pos", "vel", "omega"):
         _check(name, getattr(state, name), (n, 3), dtype, device)
     for name in ("radius", "mass"):
         _check(name, getattr(state, name), (n,), dtype, device)
     _check("active", state.active, (n,), torch.bool, device)
-    _check("nbr_idx", idx, (K, n), torch.int32, device)
-    _check("shear", state.shear, (3, K, n), dtype, device)
+    _check("nbr_idx", idx, (K, nr), torch.int32, device)
+    _check("shear", state.shear, (3, K, nr), dtype, device)
     if n_walls:
-        _check("wall_shear", state.wall_shear, (3, n_walls, n), dtype,
+        _check("wall_shear", state.wall_shear, (3, n_walls, nr), dtype,
                device)
 
 
-def _launch(state, params, dt, idx, shearupdate, periodic_len, walls):
+def _launch(state, params, dt, idx, shearupdate, periodic_len, walls,
+            rows=None):
     """Launch the kernel on the current stream."""
     W = len(walls)
-    check_inputs(state, idx, W)
+    check_inputs(state, idx, W, rows)
     x = state.pos
     dtype, device = x.dtype, x.device
     n, K = state.n_capacity, idx.shape[0]
+    rows = row_range(n, rows)
+    nr = rows[1]
     cp = _chain_params(n, K, float(dt), bool(shearupdate),
                        None if periodic_len is None else tuple(periodic_len),
-                       params, tuple(walls))
+                       params, tuple(walls), rows)
 
     lib = _library()
     fn = lib.contact_chain_f32 if dtype == torch.float32 \
         else lib.contact_chain_f64
-    force = torch.empty((n, 3), dtype=dtype, device=device)
-    torque = torch.empty((n, 3), dtype=dtype, device=device)
+    force = torch.empty((nr, 3), dtype=dtype, device=device)
+    torque = torch.empty((nr, 3), dtype=dtype, device=device)
     shear = state.shear
     wall_shear = state.wall_shear if W else None
     # entering the device costs host time: only when it is not current
@@ -287,5 +327,5 @@ def _launch(state, params, dt, idx, shearupdate, periodic_len, walls):
     if err != 0:
         msg = lib.contact_chain_error_string(err).decode()
         raise RuntimeError(f"contact_chain kernel launch failed: {msg}")
-    _count(n, device)
+    _count(nr, device)
     return force, torque, shear, wall_shear

@@ -17,6 +17,14 @@ pair_gran_hertzFix_history.cpp:65-66). The binned and lattice
 Verlet-skin rebuild tests are the reference's lax.cond as graphs.cond: a
 conditional node in a captured step, one host read per substep when run
 eagerly. The dense backend has no table: no rebuild, no scrub, no test.
+
+Every function that steps takes `shard`: None for the whole state, or
+one rank's part in a step split over ranks (parallel/mesh.Shard; the
+state is then the rank's own block of rows). The forces are the own
+rows' against partners in all rows (pos, vel and omega gathered before
+each force evaluation), the rebuild test's largest displacement is the
+largest over the ranks, and a rebuild runs on the gathered state on
+every rank alike, then cuts the own block out again.
 """
 
 from __future__ import annotations
@@ -34,21 +42,25 @@ from sedifoam_tpu_torch.dem.walls import wall_forces
 _INERTIA = 0.4  # solid sphere moment-of-inertia factor (LAMMPS nve/sphere)
 
 
-def scrub_deactivated(state: ParticleState, cfg: DEMConfig) -> ParticleState:
+def scrub_deactivated(state: ParticleState, cfg: DEMConfig,
+                      shard=None) -> ParticleState:
     """Invalidate table slots pointing at deactivated particles (see
     neighbor.scrub_dead_partners): the binned (K, N) table and the
     lattice's (M, S) slot table alike. Idempotent, so callers may run it
-    whether or not a particle was deleted."""
+    whether or not a particle was deleted. With a shard, the own
+    columns against the active flags of all rows (shard.active)."""
     if state.nbr_idx.shape[0] == 0:
         return state
     from sedifoam_tpu_torch.dem.neighbor import scrub_dead_partners
+    active = state.active if shard is None else shard.active
     return state._replace(
-        nbr_idx=scrub_dead_partners(state.nbr_idx, state.active))
+        nbr_idx=scrub_dead_partners(state.nbr_idx, active))
 
 
-def _need_rebuild(state: ParticleState, cfg: DEMConfig):
+def _need_rebuild(state: ParticleState, cfg: DEMConfig, shard=None):
     """0-d bool: an active particle moved more than half the skin since
-    the last build (periodic axes by the minimum image)."""
+    the last build (periodic axes by the minimum image); with a shard,
+    any rank's."""
     disp = state.pos - state.pos_at_build
     cols = []
     for a in range(3):
@@ -59,11 +71,14 @@ def _need_rebuild(state: ParticleState, cfg: DEMConfig):
         cols.append(da)
     disp = torch.stack(cols, dim=-1)
     max_d2 = torch.max(torch.sum(disp * disp, dim=-1) * state.active)
+    if shard is not None:
+        max_d2 = shard.comm.all_reduce_max(max_d2)
     return max_d2 > (0.5 * cfg.skin) ** 2
 
 
 def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
-                            force: bool = False) -> ParticleState:
+                            force: bool = False,
+                            shard=None) -> ParticleState:
     """Verlet-skin rebuild check (binned and lattice backends): rebuild
     when any active particle moved more than half the skin since the
     last build. The test is the reference's lax.cond (graphs.cond: a
@@ -74,7 +89,13 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
     Lattice: new slots (lattice.bin_slots) and the shear carried onto
     them (lattice.carry_shear_lattice). No sort (sort_on_rebuild is the
     binned table's) and no nbr_dropped: a bin's overflow is reported by
-    the diagnostics' lattice_unslotted."""
+    the diagnostics' lattice_unslotted.
+
+    With a shard (binned): the whole state is gathered, rebuilt (sorted,
+    binned, its shear carried over) as above on every rank alike, and
+    the own block cut out: a particle sorted into another rank's block
+    changes ranks here. nbr_dropped, counted on the whole state, is the
+    same on every rank."""
     if cfg.backend == "lattice":
         from sedifoam_tpu_torch.dem import lattice as _lat
 
@@ -124,14 +145,20 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
                            nbr_dropped=torch.maximum(st.nbr_dropped,
                                                      dropped))
 
+    if shard is not None:
+        rebuild_whole = do_rebuild
+
+        def do_rebuild(st: ParticleState) -> ParticleState:
+            return shard.cut(rebuild_whole(shard.gather(st)))
+
     if force:
         return do_rebuild(state)
-    return graphs.cond(_need_rebuild(state, cfg), do_rebuild, state)
+    return graphs.cond(_need_rebuild(state, cfg, shard), do_rebuild, state)
 
 
 def compute_forces(state: ParticleState, cfg: DEMConfig,
-                   step_time: float = 0.0, shearupdate: bool = True
-                   ) -> ParticleState:
+                   step_time: float = 0.0, shearupdate: bool = True,
+                   shard=None) -> ParticleState:
     """Total force/torque + contact history update, LAMMPS fix order.
 
     Binned with cfg.fused_chain: the contact chain goes through
@@ -142,13 +169,19 @@ def compute_forces(state: ParticleState, cfg: DEMConfig,
     of lattice.lattice_pair_forces, the walls always through
     walls.wall_forces (the reference fuses no wall on this backend);
     cohesion and lubrication are not wired there and raise.
+    With a shard, the contact chain (or the dense pairs) takes the own
+    rows against the gathered rows of all (shard.view, rows=shard.rows);
+    the rest is per row.
     """
     dt = cfg.dt
     plen = cfg.periodic_len()
     fused_wall_shear = None
+    rows = None if shard is None else shard.rows
+    contacts = state if shard is None else shard.view(state)
     if cfg.backend == "dense":
-        f_pair, tq_pair, shear = pair_forces(state, cfg.pair, dt,
-                                             shearupdate, periodic_len=plen)
+        f_pair, tq_pair, shear = pair_forces(contacts, cfg.pair, dt,
+                                             shearupdate, periodic_len=plen,
+                                             rows=rows)
     elif cfg.backend == "lattice":
         from sedifoam_tpu_torch.dem import lattice as _lat
         if cfg.cohesion is not None or cfg.lubrication is not None:
@@ -162,13 +195,13 @@ def compute_forces(state: ParticleState, cfg: DEMConfig,
         from sedifoam_tpu_torch.dem.fused import contact_chain, walls_fusible
         fuse_walls = cfg.walls if walls_fusible(cfg.walls) else ()
         f_pair, tq_pair, shear, fused_wall_shear = contact_chain(
-            state, cfg.pair, dt, state.nbr_idx, shearupdate,
-            periodic_len=plen, walls=fuse_walls)
+            contacts, cfg.pair, dt, state.nbr_idx, shearupdate,
+            periodic_len=plen, walls=fuse_walls, rows=rows)
     else:
         from sedifoam_tpu_torch.dem.neighbor import pair_forces_binned
         f_pair, tq_pair, shear = pair_forces_binned(
-            state, cfg.pair, dt, state.nbr_idx, shearupdate,
-            periodic_len=plen)
+            contacts, cfg.pair, dt, state.nbr_idx, shearupdate,
+            periodic_len=plen, rows=rows)
     if fused_wall_shear is not None:
         # wall pass already fused into the chain
         f_wall = torch.zeros_like(state.vel)
@@ -246,7 +279,7 @@ def setup_forces(state: ParticleState, cfg: DEMConfig,
     return compute_forces(state, cfg, step_time, shearupdate=False)
 
 
-def _substep(state: ParticleState, cfg: DEMConfig, step_time):
+def _substep(state: ParticleState, cfg: DEMConfig, step_time, shard=None):
     dtf = 0.5 * cfg.dt
 
     def inverses(st):
@@ -285,14 +318,15 @@ def _substep(state: ParticleState, cfg: DEMConfig, step_time):
                                        cfg.domain_hi, cfg.periodic)
 
     # neighbor maintenance + forces at the new positions
-    state = maybe_rebuild_neighbors(state, cfg)
+    state = maybe_rebuild_neighbors(state, cfg, shard=shard)
     if cfg.sort_on_rebuild:
         # a rebuild may have permuted the rows: the inverse masses follow
         # them (the reference keeps the ones it took before the rebuild,
         # which is the same thing only while every particle has one mass
         # and radius and no row is inactive)
         minv, iinv = inverses(state)
-    state = compute_forces(state, cfg, step_time, shearupdate=True)
+    state = compute_forces(state, cfg, step_time, shearupdate=True,
+                           shard=shard)
 
     # final_integrate
     vel = state.vel + dtf * state.force * minv
@@ -305,8 +339,8 @@ def _substep(state: ParticleState, cfg: DEMConfig, step_time):
 
 
 def run_dem(state: ParticleState, cfg: DEMConfig, n_steps: int,
-            t0: float = 0.0) -> ParticleState:
+            t0: float = 0.0, shard=None) -> ParticleState:
     """Advance n_steps DEM substeps (lammps_step equivalent)."""
     for i in range(n_steps):
-        state = _substep(state, cfg, t0 + i * cfg.dt)
+        state = _substep(state, cfg, t0 + i * cfg.dt, shard)
     return state

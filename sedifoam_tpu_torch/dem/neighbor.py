@@ -29,7 +29,7 @@ import torch
 from sedifoam_tpu_torch import device_vector
 from sedifoam_tpu_torch.config import PairParams
 from sedifoam_tpu_torch.dem.forcelaws import contact_force, vcross
-from sedifoam_tpu_torch.dem.pair import min_image
+from sedifoam_tpu_torch.dem.pair import min_image, own
 from sedifoam_tpu_torch.dem.state import ParticleState
 
 
@@ -255,13 +255,16 @@ def scrub_dead_partners(idx, active):
     return torch.where(keep, idx, torch.full_like(idx, n))
 
 
-def gather_partners(state: ParticleState, idx, periodic_len=None):
+def gather_partners(state: ParticleState, idx, periodic_len=None,
+                    rows=None):
     """Partner-field gather for the (K, N) neighbor table.
 
     Returns (has (K,N) bool, pg (K,N,11) packed partner fields, delta
     3-tuple of x_i - x_j with minimum image, rsq). Packed layout:
     [x,y,z, vx,vy,vz, wx,wy,wz, rad, m]. Partner activity is not
     gathered: delete events scrub the table (scrub_dead_partners).
+    rows=(row0, n_rows): the table's columns are those rows of the
+    state's N (idx (K, n_rows), its values rows of all N).
     """
     n = state.n_capacity
     x, v, w = state.pos, state.vel, state.omega
@@ -272,24 +275,26 @@ def gather_partners(state: ParticleState, idx, periodic_len=None):
     pg = packed[j]                                # (K, N, 11)
     has = idx < n
 
-    delta = min_image(tuple(x[:, c][None, :] - pg[..., c] for c in range(3)),
+    xi = own(x, rows)
+    delta = min_image(tuple(xi[:, c][None, :] - pg[..., c] for c in range(3)),
                       periodic_len)
     rsq = delta[0] ** 2 + delta[1] ** 2 + delta[2] ** 2
     return has, pg, delta, rsq
 
 
-def slot_kinematics(state: ParticleState, idx, periodic_len=None):
+def slot_kinematics(state: ParticleState, idx, periodic_len=None,
+                    rows=None):
     """Contact geometry and relative surface motion of every slot of the
     (K, N) table: (has, touch, overlap, r, rinv, rsqinv, delta, vnnr,
     vtr, meff, poly_arg); from `touch` on, the arguments of
-    forcelaws.contact_force."""
-    v, w = state.vel, state.omega
-    rad, m = state.radius, state.mass
+    forcelaws.contact_force. rows: as gather_partners."""
+    v, w = own(state.vel, rows), own(state.omega, rows)
+    rad, m = own(state.radius, rows), own(state.mass, rows)
 
-    has, pg, delta, rsq = gather_partners(state, idx, periodic_len)
+    has, pg, delta, rsq = gather_partners(state, idx, periodic_len, rows)
     radj = pg[..., 9]
     radsum = rad[None, :] + radj
-    touch = has & state.active[None, :] & (rsq < radsum * radsum)
+    touch = has & own(state.active, rows)[None, :] & (rsq < radsum * radsum)
 
     rsq_safe = torch.where(touch, rsq, torch.ones_like(rsq))
     r = torch.sqrt(rsq_safe)
@@ -316,14 +321,17 @@ def slot_kinematics(state: ParticleState, idx, periodic_len=None):
 
 
 def pair_forces_binned(state: ParticleState, params: PairParams, dt: float,
-                       idx, shearupdate: bool = True, periodic_len=None):
+                       idx, shearupdate: bool = True, periodic_len=None,
+                       rows=None):
     """Contact forces via the (K, N) neighbor table.
 
-    Returns (force (N,3), torque (N,3), new_shear (3, K, N)).
+    Returns (force (N,3), torque (N,3), new_shear (3, K, N)); with
+    rows=(row0, n_rows) those rows' alone, against partners in all N
+    (idx and state.shear are the rows' own: (K, n_rows), (3, K, n_rows)).
     """
-    rad = state.radius
+    rad = own(state.radius, rows)
     _, touch, overlap, r, rinv, rsqinv, delta, vnnr, vtr, meff, poly_arg = \
-        slot_kinematics(state, idx, periodic_len)
+        slot_kinematics(state, idx, periodic_len, rows)
 
     shear = (state.shear[0], state.shear[1], state.shear[2])
     force_pair, fs_vec, new_shear = contact_force(

@@ -29,27 +29,39 @@ def min_image(delta, periodic_len):
         for d, L in zip(delta, periodic_len))
 
 
-def pair_kinematics(state, periodic_len=None):
+def own(t, rows):
+    """Rows rows=(row0, n_rows) of a row array t (all of it when None):
+    one rank's own block of a state split over ranks (parallel/)."""
+    return t if rows is None else t[rows[0]:rows[0] + rows[1]]
+
+
+def pair_kinematics(state, periodic_len=None, rows=None):
     """Contact geometry and relative surface motion of every ordered pair
     on the (N, N) tile: (touch, overlap, r, rinv, rsqinv, delta, vnnr,
     vtr, meff, poly_arg), the arguments of forcelaws.contact_force.
-    Same-body pairs of rigid clumps are no contacts (dem/rigid.py)."""
+    Same-body pairs of rigid clumps are no contacts (dem/rigid.py).
+    rows=(row0, n_rows): the (n_rows, N) tile of those rows against
+    all N."""
     n = state.n_capacity
     x, v, w = state.pos, state.vel, state.omega
     rad, m = state.radius, state.mass
+    xi, vi, wi = own(x, rows), own(v, rows), own(w, rows)
+    radi, mi = own(rad, rows), own(m, rows)
 
-    delta = min_image(tuple(x[:, None, c] - x[None, :, c] for c in range(3)),
+    delta = min_image(tuple(xi[:, None, c] - x[None, :, c] for c in range(3)),
                       periodic_len)
     rsq = delta[0] ** 2 + delta[1] ** 2 + delta[2] ** 2
-    radsum = rad[:, None] + rad[None, :]
+    radsum = radi[:, None] + rad[None, :]
 
-    valid = state.active[:, None] & state.active[None, :]
-    valid &= ~torch.eye(n, dtype=torch.bool, device=x.device)
+    valid = own(state.active, rows)[:, None] & state.active[None, :]
+    ii = torch.arange(n, device=x.device)
+    valid &= own(ii, rows)[:, None] != ii[None, :]
     if state.rigid is not None:
         # exclude intra-body pairs: their granular forces are central
         # and cancel in the body sums
-        valid &= ~((state.mol[:, None] == state.mol[None, :])
-                   & (state.mol[:, None] > 0))
+        moli = own(state.mol, rows)
+        valid &= ~((moli[:, None] == state.mol[None, :])
+                   & (moli[:, None] > 0))
     touch = valid & (rsq < radsum * radsum)
 
     rsq_safe = torch.where(touch, rsq, torch.ones_like(rsq))
@@ -57,39 +69,41 @@ def pair_kinematics(state, periodic_len=None):
     rinv = 1.0 / r
     rsqinv = 1.0 / rsq_safe
 
-    vr = tuple(v[:, None, c] - v[None, :, c] for c in range(3))
+    vr = tuple(vi[:, None, c] - v[None, :, c] for c in range(3))
     vnnr = sum(vr[c] * delta[c] for c in range(3))
     vn = tuple(delta[c] * vnnr * rsqinv for c in range(3))
     vt = tuple(vr[c] - vn[c] for c in range(3))
     # relative rotational surface velocity
-    wr = tuple((rad[:, None] * w[:, None, c] + rad[None, :] * w[None, :, c])
+    wr = tuple((radi[:, None] * wi[:, None, c] + rad[None, :] * w[None, :, c])
                * rinv for c in range(3))
     vtr = (vt[0] - (delta[2] * wr[1] - delta[1] * wr[2]),
            vt[1] - (delta[0] * wr[2] - delta[2] * wr[0]),
            vt[2] - (delta[1] * wr[0] - delta[0] * wr[1]))
 
     # 1e-300 rounds to 0 in f32, as in the reference
-    meff = m[:, None] * m[None, :] / torch.clamp(m[:, None] + m[None, :],
-                                                 min=1e-300)
+    meff = mi[:, None] * m[None, :] / torch.clamp(mi[:, None] + m[None, :],
+                                                  min=1e-300)
     overlap = radsum - r
-    poly_arg = overlap * rad[:, None] * rad[None, :] / \
+    poly_arg = overlap * radi[:, None] * rad[None, :] / \
         torch.clamp(radsum, min=1e-300)
     return touch, overlap, r, rinv, rsqinv, delta, vnnr, vtr, meff, poly_arg
 
 
 def pair_forces(state, params: PairParams, dt: float,
-                shearupdate: bool = True, periodic_len=None):
+                shearupdate: bool = True, periodic_len=None, rows=None):
     """Contact forces/torques for all active pairs.
 
-    Returns (force (N,3), torque (N,3), new_shear (3,N,N)).
+    Returns (force (N,3), torque (N,3), new_shear (3,N,N)); with
+    rows=(row0, n_rows) those rows' alone against all N (state.shear is
+    then the rows' own (3, n_rows, N)).
     """
     if params.style == PAIR_NONE:
-        z = torch.zeros_like(state.vel)
+        z = torch.zeros_like(own(state.vel, rows))
         return z, z, state.shear
 
-    rad = state.radius
+    rad = own(state.radius, rows)
     touch, overlap, r, rinv, rsqinv, delta, vnnr, vtr, meff, poly_arg = \
-        pair_kinematics(state, periodic_len)
+        pair_kinematics(state, periodic_len, rows)
 
     shear = (state.shear[0], state.shear[1], state.shear[2])
     force_pair, fs_vec, new_shear = contact_force(

@@ -121,6 +121,13 @@ class Grid:
             cache[key] = make()
         return cache[key]
 
+    def __getstate__(self):
+        """Pickled without the memo: its device tensors stay in this
+        process (a rank spawned with a config builds its own)."""
+        state = dict(self.__dict__)
+        state.pop("_memo", None)
+        return state
+
     def const(self, key, make, dtype, device):
         """The numpy constant `make()` as a tensor of `dtype` on `device`,
         copied there once per (key, dtype, device). Callers never write a

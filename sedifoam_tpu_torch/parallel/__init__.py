@@ -1,0 +1,31 @@
+"""The coupled step split over ranks (port of ``sedifoam_tpu/parallel``).
+
+The reference parallelizes by decomposing space twice (OpenFOAM mesh
+ranks and LAMMPS bricks) and reconciles the two with an all-to-all
+transpose (softParticleCloud.C:602-687). The JAX package carries both
+on one ``jax.sharding.Mesh``: grid fields shard along x, particle
+arrays along the capacity axis, and GSPMD emits the halo exchanges,
+gathers and psums from the sharding annotations alone.
+
+PyTorch has nothing that partitions this program by itself (DTensor
+has no rule for the contact-chain kernel, the sorted scatter of the
+particle-to-grid transfer or the graph's conditional nodes), so the
+port writes the split out by hand, over a ``torch.distributed`` process
+group:
+
+- ``mesh``: ``make_mesh`` (a 1-D mesh of the group's ranks),
+  ``placement`` (the JAX module's layout rules), ``shard_state`` /
+  ``gather_state``, and ``Shard``, a rank's part in a split step;
+- ``comm``: the three collectives the step uses, with a byte counter;
+- ``step``: ``ShardedStep``, the coupled step split over the mesh;
+- ``launch``: ``run_ranks``, which starts ranks on one host.
+
+What is split: the particle arrays (rows, and the (K, N) table and the
+contact and wall histories along N), where the DEM's state and time go;
+the contact-chain kernel runs on each rank's own rows. What stays
+whole on every rank: the fluid grid, stepped by every rank alike. A
+grid-x split of the fluid (halo exchanges in the stencils, reduced dot
+products in the solvers, transposes in the FastDiag transforms) is
+queued in ROADMAP.md, with the capture of the split step as one CUDA
+graph and the combinations ``ShardedStep`` raises on.
+"""

@@ -95,10 +95,12 @@ def need_ddtu(cfg: SimConfig) -> bool:
 
 
 def coupled_step(state: SimState, cfg: SimConfig, smoother=None,
-                 pprecond=None) -> SimState:
+                 pprecond=None, shard=None) -> SimState:
     """One fluid timestep of the coupled system. `smoother` and
     `pprecond` are the prebuilt FastDiag operators (CoupledStep holds
-    them); each is built on the fly when None."""
+    them); each is built on the fly when None. `shard`: one rank's part
+    in a step split over ranks (parallel/step.ShardedStep): the
+    particles are its own block of rows, the fluid is whole."""
     grid, bcs = cfg.grid, cfg.bcs
     fluid, particles = state.fluid, state.particles
 
@@ -108,10 +110,11 @@ def coupled_step(state: SimState, cfg: SimConfig, smoother=None,
 
     fluid, particles, uf_smoothed = _cloud.evolve(
         fluid, particles, state.uf_smoothed, grid, bcs,
-        cfg.cloud, cfg.dem, cfg.fluid, smoother)
+        cfg.cloud, cfg.dem, cfg.fluid, smoother, shard)
 
     fluid = _cloud.lift_drag_coeffs(fluid, particles, uf_smoothed, grid,
-                                    bcs, cfg.cloud, cfg.fluid, smoother)
+                                    bcs, cfg.cloud, cfg.fluid, smoother,
+                                    shard)
 
     return SimState(fluid, particles, uf_smoothed, state.uf_smoothed)
 
