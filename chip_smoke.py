@@ -176,8 +176,18 @@ which passes or exits nonzero:
    ranks, bit for bit after the step); per rank the bytes of nbr_idx,
    shear, wall_shear and pos (half of the whole), the collective bytes
    per step, ms per step and the
-   kernel's launches (once a substep, on the rank's rows); each phase's
-   seconds in the last line before the output;
+   kernel's launches (once a substep, on the rank's rows); the fluid is
+   split along grid-x on the gloo ranks (each rank steps its x-slab:
+   halo planes, plane-ordered sums, FastDiag all-to-alls): each run says
+   its layout, the bytes of p, Ub and alpha per rank (half of the
+   whole), the collective bytes by kind and which fields are bit for bit
+   (the first that parts named); the transport-bedload channel at its
+   full 140x65x60 (f32, 8,192 rows, K = 16) on the gloo ranks, its fluid
+   split, SHARDED_STEPS steps against the one-process step, held as the
+   bench bed; and every stencil, FastDiag solve and solver of the slab
+   path at the channel's shape (f32, tests/torch_port_slabs.py) against
+   the whole grid's call, naming any operation that parts on the card;
+   each phase's seconds in the last line before the output;
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, graph (from each case's
    set-up on), runner, inject, case, clumps, extras, bench, the sharded
@@ -2612,6 +2622,7 @@ SHARDED_RANKS = 2
 SHARDED_TOL = 1e-5        # of each field's scale, where not bit for bit
 SHARDED_TIMEOUT = 600     # seconds a spawn of ranks may take
 TABLES = ("nbr_idx", "shear", "wall_shear", "pos")
+FIELDS = ("p", "Ub", "alpha")
 
 
 def nbytes(t):
@@ -2647,15 +2658,22 @@ def phase_sharded(dev, k, smi):
     in a seeded random order and a rebuild at every substep (skin 0),
     SHARDED_REBUILD_STEPS steps on SHARDED_RANKS gloo ranks: the sorted
     rebuilds move particles between the ranks, and the particles stay bit
-    for bit. Returns the launches
-    of the ranks (the main path of the split step)."""
+    for bit; (d) the channel at full width on SHARDED_RANKS gloo ranks,
+    held as (b). The fluid is split along grid-x in (b), (b') and (d):
+    each run reports its layout, the per-rank bytes of p, Ub and alpha
+    (1/ranks of the whole), the collective bytes by kind and the fields
+    that are not bit for bit; (e) every stencil and solve of the slab
+    path at the channel's shape on SHARDED_RANKS gloo ranks against the
+    whole grid's call (the operations that part, if any). Returns the
+    launches of the ranks (the main path of the split step)."""
     import numpy as np
     import torch
-    from sedifoam_tpu_torch import bench_case, bridge
+    from sedifoam_tpu_torch import bench_case, bridge, cases
     from sedifoam_tpu_torch.dem import fused
     from sedifoam_tpu_torch.dem.neighbor import permute_particle_state
+    from sedifoam_tpu_torch.io.case import load_case
     from sedifoam_tpu_torch.parallel.launch import run_ranks
-    from sedifoam_tpu_torch.parallel.step import TABLES, run_steps
+    from sedifoam_tpu_torch.parallel.step import FIELDS, TABLES, run_steps
     from sedifoam_tpu_torch.solver import CoupledStep
 
     # (a) the kernel on each half of the bench table's rows
@@ -2757,7 +2775,7 @@ def phase_sharded(dev, k, smi):
         "every substep: " + ", ".join(f"{m:.1f}" for m in ref_ms_r)
         + f" ms ({smi})")
 
-    def held(label, res, refs, bitwise):
+    def held(label, res, refs, bitwise, cfg=cfg):
         # each rank launches the kernel once a substep, on its own rows
         # (CPU ranks run its plain version)
         expected = len(refs) * cfg.cloud.sub_cycles * cfg.cloud.sub_steps \
@@ -2765,8 +2783,19 @@ def phase_sharded(dev, k, smi):
         states = [bridge.sim_state_from_numpy(res[0]["states"][i],
                                               device="cpu")
                   for i in sorted(res[0]["states"])]
+        layout = res[0]["fluid"]
+        if len(res) > 1 and layout != "slab":
+            fail(f"sharded [{label}]: the fluid is {layout}, not split "
+                 "along x")
+        bit = []
         for i, (got, ref) in enumerate(zip(states, refs), 1):
             differ = fields_that_differ(ref, got)
+            n_fields = sum(1 for _ in tree_leaves(ref))
+            bit.append(n_fields - len(differ))
+            say(f"sharded [{label}] step {i}: {n_fields - len(differ)} of "
+                f"{n_fields} fields bit for bit" + (
+                    f"; the first that parts: {differ[0]}" if differ
+                    else ""))
             if bitwise:
                 if differ:
                     fail(f"sharded [{label}]: step {i} differs from the "
@@ -2789,11 +2818,15 @@ def phase_sharded(dev, k, smi):
                                            for f, e in misses.items()))
         whole = {name: nbytes(getattr(refs[0].particles, name))
                  for name in TABLES}
+        whole_f = {name: nbytes(getattr(refs[0].fluid, name))
+                   for name in FIELDS}
         for r in res:
             say(f"sharded [{label}] rank {r['rank']} on {r['device']} "
-                f"({r['backend']}): "
+                f"({r['backend']}), fluid {r['fluid']}: "
                 + ", ".join(f"{name} {r['tables'][name]} of {whole[name]} B"
-                            for name in TABLES)
+                            for name in TABLES) + ", " + ", ".join(
+                    f"{name} {r['fields'][name]} of {whole_f[name]} B"
+                    for name in FIELDS)
                 + "; collective bytes per step " + ", ".join(
                     json.dumps(c) for c in r["comm"])
                 + "; ms per step " + ", ".join(f"{m:.1f}" for m in r["ms"])
@@ -2807,6 +2840,15 @@ def phase_sharded(dev, k, smi):
                     fail(f"sharded [{label}]: rank {r['rank']} holds "
                          f"{r['tables'][name]} B of {name}, not "
                          f"1/{len(res)} of {whole[name]}")
+            for name in FIELDS:
+                if r["fields"][name] * len(res) != whole_f[name]:
+                    fail(f"sharded [{label}]: rank {r['rank']} holds "
+                         f"{r['fields'][name]} B of {name}, not "
+                         f"1/{len(res)} of {whole_f[name]}")
+            if len(res) > 1 and not {"collective-permute", "all-to-all"} \
+                    <= set(r["comm"][0]):
+                fail(f"sharded [{label}]: rank {r['rank']} made no halo "
+                     f"exchange or all-to-all: {r['comm'][0]}")
         moved = sum(len(set(r["tags_before"]) - set(r["tags_after"]))
                     for r in res)
         say(f"sharded [{label}]: {moved} particles changed ranks")
@@ -2815,9 +2857,11 @@ def phase_sharded(dev, k, smi):
             sizes.update(r["launch_sizes"])
         return {"ranks": len(res), "moved": moved,
                 "launches": sum(r["launches"] for r in res),
-                "launch_sizes": dict(sizes),
+                "launch_sizes": dict(sizes), "N": refs[0].particles.n_capacity,
+                "K": refs[0].particles.nbr_idx.shape[0],
                 "ms": [r["ms"] for r in res], "comm": res[0]["comm"],
-                "tables": res[0]["tables"]}
+                "tables": res[0]["tables"], "fluid": layout,
+                "fields": res[0]["fields"], "bitwise_fields": bit}
 
     t0 = time.perf_counter()
     res = run_ranks(run_steps, SHARDED_RANKS,
@@ -2840,12 +2884,60 @@ def phase_sharded(dev, k, smi):
                           bitwise=False)
     if out["rebuilt"]["moved"] == 0:
         fail("sharded: the rebuilds moved no particle between the ranks")
-    paths = [out[key] for key in ("gloo", "nccl", "rebuilt")]
+
+    # (d) the channel at full width, its fluid split along x
+    with tempfile.TemporaryDirectory() as tmp:
+        case = cases.write_channel_case(os.path.join(tmp, "channel"),
+                                        **cases.CHANNEL_FULL,
+                                        overlap=CASE_OVERLAP)
+        ccfg, cfluid, cparts, _ = load_case(
+            case, backend="binned", dtype=torch.float32, capacity=8192,
+            device=dev)
+    ccfg = dataclasses.replace(ccfg, cloud=dataclasses.replace(
+        ccfg.cloud, semi_implicit_drag=True))
+    cstep = CoupledStep(ccfg, dtype=torch.float32, device=dev)
+    cstate = cstep.initialize(cfluid, cparts)
+    csnp = bridge.sim_state_to_numpy(cstate)
+    crefs, cref_ms = one_process(cstep, SHARDED_STEPS, cstate)
+    del cstate, cstep
+    say(f"sharded: the channel {ccfg.grid.shape}, one process, "
+        "CoupledStep eagerly: " + ", ".join(f"{m:.1f}" for m in cref_ms)
+        + f" ms a step ({smi})")
+    t0 = time.perf_counter()
+    res = run_ranks(run_steps, SHARDED_RANKS,
+                    args=(ccfg, csnp, SHARDED_STEPS), backend="gloo",
+                    device=dev, timeout=SHARDED_TIMEOUT)
+    say(f"sharded: {SHARDED_RANKS} gloo ranks sharing {dev} ran the "
+        f"channel {SHARDED_STEPS} steps in {time.perf_counter() - t0:.1f} "
+        "s of wall time, process start-up included (two ranks on one card "
+        "measure the path, not a speed-up)")
+    out["channel"] = held("channel gloo x2", res, crefs, bitwise=False,
+                          cfg=ccfg)
+
+    # (e) the slab path's operations at the channel's shape on the card
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_port_slabs import slab_ops_job
+    res = run_ranks(slab_ops_job, SHARDED_RANKS,
+                    args=(5, ccfg.grid.shape, torch.float32), backend="gloo",
+                    device=dev, timeout=SHARDED_TIMEOUT)[0]
+    parting = {kind: [op for op, ok in ops.items()
+                      if op != "iterations" and not ok]
+               for kind, ops in res.items() if kind != "bytes"}
+    its = {kind: ops["iterations"] for kind, ops in res.items()
+           if kind != "bytes"}
+    say(f"sharded [slab operations, {ccfg.grid.shape}, f32, "
+        f"{SHARDED_RANKS} gloo ranks]: the operations whose slabs part "
+        f"from the whole grid's call on the card: {json.dumps(parting)}; "
+        f"solver iterations (whole, slabs): {json.dumps(its)}")
+    out["slab_ops_parting"] = parting
+    paths = [out[key] for key in ("gloo", "nccl", "rebuilt", "channel")]
     out["launches"] = sum(path["launches"] for path in paths)
-    out["launch_sizes"] = dict(sum(
-        (collections.Counter(path["launch_sizes"]) for path in paths),
-        collections.Counter()))
+    out["ran_at"] = [{"N": path["N"], "rows": rows, "K": path["K"],
+                      "launches": c, "path": "sharded"}
+                     for path in paths
+                     for rows, c in sorted(path["launch_sizes"].items())]
     out["ref_ms"] = ref_ms + ref_ms_r
+    out["channel_ref_ms"] = cref_ms
     return out
 
 
@@ -3031,9 +3123,7 @@ def main():
     launches += sum(r["launches"] for r in graph_ran)
     # the split step's ranks: launches on their own rows, in their
     # processes, by the rows each launch computed (as the ranks counted)
-    ran_at += [{"N": 131072, "rows": rows, "K": 8, "launches": c,
-                "path": "sharded"}
-               for rows, c in sorted(sharded["launch_sizes"].items())]
+    ran_at += sharded["ran_at"]
     launches += sharded["launches"]
     paths = (case, clumps, extras, bench) + tuple(validate.values())
     for path in paths:
@@ -3055,8 +3145,9 @@ def main():
         "bench_rates": bench_rates, "lattice": lattice,
         "rows_ms": sharded["rows_ms"],
         "rows_bound_ms": sharded["rows_bound_ms"],
-        "sharded": {key: sharded[key] for key in ("gloo", "nccl",
-                                                  "rebuilt", "ref_ms")},
+        "sharded": {key: sharded[key] for key in (
+            "gloo", "nccl", "rebuilt", "channel", "ref_ms",
+            "channel_ref_ms", "slab_ops_parting")},
         "shapes": k["shapes"],
         "graphs": GRAPHS, "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {

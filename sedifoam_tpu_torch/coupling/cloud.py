@@ -19,9 +19,11 @@ removed anyone stay on the device; an eager step reads them on the host
 (inject.SYNCS counts those reads).
 
 `shard` (parallel/mesh.Shard, None for the whole state): the particles
-are one rank's own block of rows of a step split over ranks (the fluid
-is whole on every rank); the DEM and the particle-to-grid scatters take
-it (dem/integrate.py, transfer.py).
+are one rank's own block of rows of a step split over ranks; the DEM and
+the particle-to-grid scatters take it (dem/integrate.py, transfer.py).
+The fluid is whole on every rank, or, where `grid` is a slab of it
+(grid.SlabGrid), split along grid-x: the transfers then exchange with
+the other slabs (transfer.py).
 """
 
 from __future__ import annotations
@@ -172,7 +174,8 @@ def lift_drag_coeffs(fluid: FluidState, particles: ParticleState,
     # calcTcFields: per-particle Jd at current state (alpha + Uf in one
     # packed row gather)
     cells = _transfer.particle_cells(particles, grid)
-    p_alpha, uf_at_p = _transfer.gather_fields(cells, alpha, uf_smoothed)
+    p_alpha, uf_at_p = _transfer.gather_fields(cells, alpha, uf_smoothed,
+                                               grid=grid)
     uri = uf_at_p - particles.vel
     mag_uri = torch.sqrt(torch.sum(uri * uri, dim=-1))
     d = torch.clamp(2.0 * particles.radius, min=1e-300)

@@ -70,7 +70,7 @@ def particle_forces(
         fields.append(curl_u)
     if ccfg.particle_history_force:
         fields.append(uf_smoothed_old)
-    gathered = gather_fields(cells, *fields)
+    gathered = gather_fields(cells, *fields, grid=grid)
     uf_p, p_alpha = gathered[:2]
     rest = list(gathered[2:])
     dudt_p = rest.pop(0) if need_dudt else torch.zeros_like(state.vel)

@@ -69,5 +69,5 @@ def smooth(field, grid: Grid, bandwidth: float, steps: int,
     solve = linsolve.pcg_multi if field.dim() == 4 else linsolve.pcg
     for _ in range(steps):
         field = solve(apply_fn, V_dt * field, field, diag, tol=tol,
-                      max_iter=max_iter).x
+                      max_iter=max_iter, grid=grid).x
     return field

@@ -12,12 +12,19 @@ scale within 6 coupled steps (H100), so two runs, or a run and its
 resume from a checkpoint, would not repeat. With the sorted sum a run
 repeats bit for bit on the card too (tests/test_torch_cuda.py).
 
-In a step split over ranks (`shard`, parallel/mesh.Shard) each rank
-scatters its own rows into a partial grid, and the partials are summed
-over the ranks (shard.comm.all_reduce_sum): the sum runs in another
-order than one rank's sorted sum, so the fields agree with it to
-round-off. The gathers need no exchange: the grid is whole on every
-rank.
+In a step split over ranks (`shard`, parallel/mesh.Shard) with the
+fluid whole on every rank, each rank scatters its own rows into a
+partial grid, and the partials are summed over the ranks
+(shard.comm.all_reduce_sum): the sum runs in another order than one
+rank's sorted sum, so the fields agree with it to round-off. The
+gathers need no exchange.
+
+With the fluid split along grid-x (grid.SlabGrid) each row's values go
+to the rank whose slab holds its cell (parallel/comm.route_rows: an
+all-to-all of the rows that leave their rank; with rows sorted by bin,
+few do), and each rank scatters the rows of its slab's cells in the
+rows' global order: one process's sum, bit for bit. The gathers read
+the fields of the whole domain, gathered from the slabs (`join`).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import Tuple
 import torch
 
 from sedifoam_tpu_torch.dem.state import ParticleState
-from sedifoam_tpu_torch.grid import Grid
+from sedifoam_tpu_torch.grid import Grid, SlabGrid
 
 ROOTVSMALL = 1e-18
 
@@ -41,7 +48,7 @@ def particle_cells(state: ParticleState, grid: Grid):
 def cell_volume_at(cells, grid: Grid, like):
     """Host-cell volume per particle: scalar on uniform grids, a gather on
     graded ones."""
-    V = grid.cell_volume_like(like)
+    V = grid.domain.cell_volume_like(like)
     if grid.uniform:
         return V
     return V.reshape(-1)[cells]
@@ -53,8 +60,17 @@ def _segment_sum(w, cells, n_cells):
     return out.index_put_((cells,), w, accumulate=True)
 
 
-def _reduced(flat, shard):
-    """flat summed over the ranks of a split step (as it is without)."""
+def _scatter(w, cells, grid: Grid, shard):
+    """(grid.n_cells, ...) sums of the rows w (N, ...) at their domain
+    cells: over the ranks' rows too in a split step (the module
+    docstring)."""
+    if isinstance(grid, SlabGrid):
+        plane = grid.ny * grid.nz
+        if grid.comm.ranks > 1:
+            dest = torch.div(cells, grid.nx * plane, rounding_mode="floor")
+            w, cells = grid.comm.route_rows(dest, w, cells)
+        return _segment_sum(w, cells - grid.x_start * plane, grid.n_cells)
+    flat = _segment_sum(w, cells, grid.n_cells)
     return flat if shard is None else shard.comm.all_reduce_sum(flat)
 
 
@@ -63,12 +79,11 @@ def scatter_to_grid(values, cells, active, grid: Grid, shard=None):
     summed over the ranks' rows too."""
     if values.ndim == 2:
         w = torch.where(active[:, None], values, torch.zeros_like(values))
-        flat = _reduced(_segment_sum(w, cells, grid.n_cells), shard)
+        flat = _scatter(w, cells, grid, shard)
         return torch.movedim(flat, -1, 0).reshape((values.shape[1],)
                                                   + grid.shape)
     w = torch.where(active, values, torch.zeros_like(values))
-    return _reduced(_segment_sum(w, cells, grid.n_cells),
-                    shard).reshape(grid.shape)
+    return _scatter(w, cells, grid, shard).reshape(grid.shape)
 
 
 def scatter_fields(cells, active, grid: Grid, *values, shard=None):
@@ -87,7 +102,7 @@ def scatter_fields(cells, active, grid: Grid, *values, shard=None):
             splits.append(0)          # 0 marks "scalar"
     packed = torch.cat(cols, dim=1)
     w = torch.where(active[:, None], packed, torch.zeros_like(packed))
-    flat = _reduced(_segment_sum(w, cells, grid.n_cells), shard)
+    flat = _scatter(w, cells, grid, shard)
     out, o = [], 0
     for s in splits:
         if s == 0:
@@ -100,19 +115,22 @@ def scatter_fields(cells, active, grid: Grid, *values, shard=None):
     return out
 
 
-def gather_from_grid(field, cells):
-    """field value at each particle's host cell. field: (nx,ny,nz) or (3,...)."""
+def gather_from_grid(field, cells, grid: Grid = None):
+    """field value at each particle's host cell. field: (nx,ny,nz) or
+    (3,...) of `grid` (a slab's: joined first)."""
+    if grid is not None:
+        field = grid.join(field)
     if field.ndim == 4:
         return field.reshape(field.shape[0], -1).T[cells]
     return field.reshape(-1)[cells]
 
 
-def gather_fields(cells, *fields):
+def gather_fields(cells, *fields, grid: Grid = None):
     """ONE row gather for several grid fields at the same host cells.
 
-    fields: each (nx,ny,nz) or (C,nx,ny,nz); all components concatenate
-    into one (n_cells, C_total) table. Returns one tensor per input
-    ((N,) or (N,C))."""
+    fields: each (nx,ny,nz) or (C,nx,ny,nz) of `grid`; all components
+    concatenate into one (n_cells, C_total) table (a slab's: joined in
+    one gather). Returns one tensor per input ((N,) or (N,C))."""
     cols, splits = [], []
     for f in fields:
         if f.ndim == 4:
@@ -121,7 +139,10 @@ def gather_fields(cells, *fields):
         else:
             cols.append(f.reshape(1, -1))
             splits.append(0)
-    packed = torch.cat(cols, dim=0).T             # (n_cells, C_total)
+    packed = torch.cat(cols, dim=0)
+    if grid is not None:
+        packed = grid.join(packed, axis=1)
+    packed = packed.T                             # (n_cells, C_total)
     g = packed[cells]                             # one row gather
     out, o = [], 0
     for s in splits:
@@ -180,7 +201,7 @@ def calc_asrc(state: ParticleState, jd_vals, uf_smoothed, gamma, grid: Grid,
     V = cell_volume_at(cells, grid, jd_vals)
     omg = state.volume * jd_vals / V
     if uf_at_p is None:
-        uf_at_p = gather_from_grid(uf_smoothed, cells)
+        uf_at_p = gather_from_grid(uf_smoothed, cells, grid)
     contrib = omg[:, None] * (state.vel - uf_at_p)
     asrc = scatter_to_grid(contrib, cells, state.active, grid, shard)
 

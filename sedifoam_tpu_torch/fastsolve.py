@@ -13,6 +13,14 @@ once per (grid, BCs) in numpy (a copy of the reference's); the transforms
 are matmuls on tensors, which must run in full precision on the card
 (TF32 off: its ~1e-3 relative error breaks the smoothing's maximum
 principle).
+
+On a slab of a fluid split along grid-x (grid.SlabGrid) the operator is
+the whole grid's: the x transform runs on all planes of a block of the
+flattened (y, z) columns, after an all-to-all from the x-split to that
+column split, and the data goes back before the y and z transforms, so
+the axis order x, y, z and every column's arithmetic stay the whole
+grid's (four all-to-alls a solve); the eigenvalue sum is cut to the
+slab.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch
 from torch import nn
 
 from sedifoam_tpu_torch import bc as _bc
-from sedifoam_tpu_torch.grid import Grid
+from sedifoam_tpu_torch.grid import Grid, SlabGrid
 
 # BC kind per axis side for the 1D operators
 DIRICHLET = "dirichlet"
@@ -115,14 +123,18 @@ class FastDiag(nn.Module):
     def __init__(self, grid: Grid, d_coefs, kinds, dtype=torch.float64,
                  device=None):
         super().__init__()
+        self.slab = grid if isinstance(grid, SlabGrid) else None
+        whole = grid.whole if self.slab is not None else grid
         fwds, bwds, lam3 = _fastdiag_arrays(
-            grid, tuple(float(d) for d in d_coefs), tuple(kinds))
+            whole, tuple(float(d) for d in d_coefs), tuple(kinds))
         for a in range(3):
             self.register_buffer(f"fwd{a}", torch.as_tensor(
                 fwds[a], dtype=dtype, device=device))
             self.register_buffer(f"bwd{a}", torch.as_tensor(
                 bwds[a], dtype=dtype, device=device))
-        self.register_buffer("lam3", torch.as_tensor(lam3, dtype=dtype,
+        cut = lam3 if self.slab is None else \
+            lam3[grid.x_start:grid.x_start + grid.nx]
+        self.register_buffer("lam3", torch.as_tensor(cut, dtype=dtype,
                                                      device=device))
         # singular (all-Neumann) operators have one ~0 eigenvalue at c0=0;
         # flag it so callers can project it out
@@ -136,10 +148,16 @@ class FastDiag(nn.Module):
     def bwd(self):
         return [self.bwd0, self.bwd1, self.bwd2]
 
-    @staticmethod
-    def _transform(mats, b):
+    def _transform(self, mats, b):
         off = b.ndim - 3
         for a in range(3):
+            if a == 0 and self.slab is not None:
+                comm = self.slab.comm
+                c = comm.to_columns(b)
+                c = torch.movedim(torch.tensordot(mats[0], c,
+                                                  dims=([1], [off])), 0, off)
+                b = comm.from_columns(c, b.shape)
+                continue
             b = torch.movedim(
                 torch.tensordot(mats[a], b, dims=([1], [off + a])),
                 0, off + a)

@@ -12,6 +12,11 @@ Per fluid timestep (lammpsFoam.C:74-123):
 
 The Cvm virtual-mass block, the IBM relaxation term and the DNS forcing
 term (fluid/bodyforce.py) are assembled as in the reference.
+
+On a slab of a fluid split along grid-x (grid.SlabGrid) the means, the
+solver's reductions and the Ubar forcing's sums are the grid's
+plane-ordered ones, summed over the ranks, and the pressure reference
+value comes from the rank that owns the reference cell.
 """
 
 from __future__ import annotations
@@ -246,12 +251,13 @@ def piso(fs: FluidState, eqn: UbEqn, grid: Grid, bcs: FluidBCs,
     asrc_flux = ops.flux_of(fs.Asrc, grid, _bc.zero_gradient())
     phi_dragb = FaceField(*(
         rUbA_rhob_f[a] * asrc_flux[a] + rUbAf[a] * gflux[a] for a in range(3)))
-    phi_dragb = _zero_on_zero_gradient_p(phi_dragb, bcs.p)
+    phi_dragb = _zero_on_zero_gradient_p(phi_dragb, bcs.p, grid)
 
     dcorr = ddt_corr(fs.Ub_old, fs.phib_old, grid, bcs.Ub, dt, t)
 
     need_ref = _needs_reference(bcs.p)
-    ijk_ref = np.unravel_index(cfg.piso.p_ref_cell, grid.shape)
+    ijk_ref = np.unravel_index(cfg.piso.p_ref_cell,
+                               (grid.whole_nx, grid.ny, grid.nz))
 
     from sedifoam_tpu_torch.fluid.pprecond import make_preconditioner
     precond_raw = make_preconditioner(grid, bcs.p, need_ref,
@@ -278,16 +284,18 @@ def piso(fs: FluidState, eqn: UbEqn, grid: Grid, bcs: FluidBCs,
             if need_ref:
                 # singular (all-Neumann/periodic) system: solve in the
                 # consistent subspace and pin the constant afterwards
-                b = b - torch.mean(b)
-            dp_scale = sum(torch.mean(Dp[a]) for a in range(3)) / 3.0
+                b = b - grid.mean(b)
+            dp_scale = sum(grid.mean(Dp[a], x_faces=a == 0)
+                           for a in range(3)) / 3.0
             sol = linsolve.pcg(p_term.apply, b, p, p_term.diag,
                                tol=cfg.piso.p_tol,
                                rel_tol=cfg.piso.p_rel_tol,
                                max_iter=cfg.piso.p_max_iter,
-                               precond=lambda r: precond_raw(r, dp_scale))
+                               precond=lambda r: precond_raw(r, dp_scale),
+                               grid=grid)
             p = sol.x
             if need_ref:
-                p = p - p[ijk_ref] + cfg.piso.p_ref_value
+                p = p - grid.cell_value(p, ijk_ref) + cfg.piso.p_ref_value
 
         # flux correction: SfGradp = pEqn.flux()/Dp = A_f * snGrad(p)
         sgp = ops.sn_grad(p, grid, bcs.p, t=t)
@@ -306,12 +314,15 @@ def piso(fs: FluidState, eqn: UbEqn, grid: Grid, bcs: FluidBCs,
     return fs._replace(p=p, Ub=Ub, phia=phia, phib=phib, phi=phi)
 
 
-def _zero_on_zero_gradient_p(flux: FaceField, pbc: _bc.FieldBC) -> FaceField:
-    """pEqn.H:28-35: kill the drag/gravity flux on zeroGradient-p patches."""
+def _zero_on_zero_gradient_p(flux: FaceField, pbc: _bc.FieldBC,
+                             grid: Grid) -> FaceField:
+    """pEqn.H:28-35: kill the drag/gravity flux on zeroGradient-p patches
+    (the domain's: not on a slab's seams)."""
     out = [flux.x, flux.y, flux.z]
     for a in range(3):
-        for lo, patch in zip((True, False), pbc.axis(a)):
-            if patch.kind not in (_bc.ZERO_GRADIENT, _bc.EMPTY):
+        for lo, patch, seam in zip((True, False), pbc.axis(a),
+                                   grid.seams(a)):
+            if patch.kind not in (_bc.ZERO_GRADIENT, _bc.EMPTY) or seam:
                 continue
             fm = ops._mv(out[a], a).clone()
             if lo:
@@ -361,13 +372,18 @@ def adjust_channel_forcing(fs: FluidState, rUbA, grid: Grid,
                                   fs.p.device)
         beta = fs.beta
         V = grid.cell_volume_like(beta) + torch.zeros_like(beta)
-        Udir = torch.einsum("c,cxyz->xyz", direction, fs.U)
+        # cell by cell, not a matmul: its rounding must not depend on
+        # the field's size or layout (a slab's is the whole grid's)
+        U = fs.U
+        Udir = direction[0] * U[0] + direction[1] * U[1] \
+            + direction[2] * U[2]
         bV = beta * V
         # compensated global means: the forcing feedback integrates this
         # error over thousands of steps (the reference does it in f64)
         pol = cfg.dtype_policy
-        mag_ubar_star = stable_dot(Udir, bV, pol) / stable_sum(bV, pol)
-        rub_avg = stable_dot(rUbA, V, pol) / stable_sum(V, pol)
+        mag_ubar_star = stable_dot(Udir, bV, pol, grid) \
+            / stable_sum(bV, pol, grid)
+        rub_avg = stable_dot(rUbA, V, pol, grid) / stable_sum(V, pol, grid)
         grad_p_plus = (f.mag_ubar - mag_ubar_star) / rub_avg
         dU = rUbA * grad_p_plus / torch.clamp(beta, min=1e-6)
         Ub = fs.Ub + direction[:, None, None, None] * dU[None]

@@ -110,7 +110,7 @@ def correct(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig
                   + linop.Sp(t.Ce * torch.sqrt(k) / delta, grid)
                   + linop.source(G, grid))  # production on the RHS
         sol = linsolve.bicgstab(term_k.apply, term_k.rhs, k, term_k.diag,
-                                tol=1e-8, max_iter=500)
+                                tol=1e-8, max_iter=500, grid=grid)
         k_new = torch.clamp(sol.x, min=1e-12)
         return fs._replace(k=k_new, nut=t.Ck * torch.sqrt(k_new) * delta)
 
@@ -134,14 +134,15 @@ def _is_noslip(patch) -> bool:
 def _wall_layers(grid: Grid, bcs: FluidBCs):
     """(mask (nx,ny,nz), y_half (nx,ny,nz)) numpy arrays of cells
     adjacent to no-slip walls, with their wall distance (half cell
-    width)."""
+    width); on a slab, the walls of its own sides (not its seams)."""
     mask = np.zeros(grid.shape, bool)
     yh = np.ones(grid.shape)
     for a in range(3):
         lo_p, hi_p = bcs.Ub.axis(a)
         w = grid.axis_widths(a)
-        for is_lo, patch in ((True, lo_p), (False, hi_p)):
-            if not _is_noslip(patch):
+        for is_lo, patch, seam in zip((True, False), (lo_p, hi_p),
+                                      grid.seams(a)):
+            if seam or not _is_noslip(patch):
                 continue
             sl = [slice(None)] * 3
             sl[a] = slice(0, 1) if is_lo else slice(-1, None)
@@ -218,7 +219,7 @@ def _k_epsilon(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig
               + linop.Sp(t.C2 * eps / k, grid)
               + linop.source(t.C1 * G * eps / k, grid))  # production RHS
     sol_e = linsolve.bicgstab(term_e.apply, term_e.rhs, eps, term_e.diag,
-                              tol=1e-8, max_iter=500)
+                              tol=1e-8, max_iter=500, grid=grid)
     eps_new = torch.clamp(sol_e.x, min=1e-12)
     if walls is not None:
         # epsilonWallFunction pins the wall-cell value
@@ -232,7 +233,7 @@ def _k_epsilon(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig
               + linop.Sp(eps_new / k, grid)
               + linop.source(G, grid))  # production on the RHS
     sol_k = linsolve.bicgstab(term_k.apply, term_k.rhs, k, term_k.diag,
-                              tol=1e-8, max_iter=500)
+                              tol=1e-8, max_iter=500, grid=grid)
     k_new = torch.clamp(sol_k.x, min=1e-12)
 
     nut_new = t.Cmu * k_new ** 2 / eps_new

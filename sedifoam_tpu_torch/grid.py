@@ -16,6 +16,11 @@ The numpy geometry is a copy of ``sedifoam_tpu/grid.py``; the methods
 that make or read fields (``cell_centers``, ``locate``, ``flat_index``,
 ``zeros*``) work on tensors on an explicit device.
 
+``SlabGrid`` is one rank's x-slab of a Grid, for a fluid split along
+grid-x over ranks (parallel/step.py): the planes [x_start, x_start + nx)
+of the whole grid, with the geometry of the whole grid's faces and the
+collectives its stencils, sums and transforms exchange with.
+
 The reference compiles a step into one program, so its numpy constants
 are baked in once. Eager PyTorch would copy them to the device at every
 stencil call (a synchronizing copy each); ``Grid.const`` keeps one tensor
@@ -180,6 +185,26 @@ class Grid:
         return np.concatenate([[0.5 * w[0]], 0.5 * (w[:-1] + w[1:]),
                                [0.5 * w[-1]]])
 
+    def seams(self, a: int):
+        """(lo, hi): whether each side of axis a is a seam with another
+        rank's slab (SlabGrid, axis 0) rather than a boundary patch."""
+        return False, False
+
+    def internal_weights(self, a: int) -> np.ndarray:
+        """Owner weights of the faces with a cell on both sides, the
+        ghost cells of a slab's seams included: axis_weights here."""
+        return self.axis_weights(a)
+
+    def internal_inv_dists(self, a: int) -> np.ndarray:
+        """Inverse center distances of those faces."""
+        return 1.0 / self.axis_dists(a)[1:-1]
+
+    def axis_ends(self, a: int):
+        """(first width, last width, their mean: the cyclic seam's
+        distance) of axis a of the whole domain."""
+        w = self.axis_widths(a)
+        return float(w[0]), float(w[-1]), float(0.5 * (w[0] + w[-1]))
+
     def axis_weights(self, a: int) -> np.ndarray:
         """(n-1,) owner-side linear interpolation weight on internal faces
         (OpenFOAM surfaceInterpolation::weights): w = (c_N - x_f)/(c_N - c_P)."""
@@ -283,6 +308,63 @@ class Grid:
         """(N, 3) integer cell indices -> flat (N,) indices."""
         return (ijk[:, 0] * self.ny + ijk[:, 1]) * self.nz + ijk[:, 2]
 
+    # ---- reductions over the cells, plane by plane along grid-x ---------
+
+    def plane_sums(self, x, x_faces: bool = False):
+        """(..., planes) sums of x (..., planes, ny', nz') over its last two
+        axes, one per grid-x plane (of faces when x_faces), all planes of
+        the domain in x order. Each plane is summed in its row-major
+        order, whatever x's strides: a field's layout must not change
+        the bits of its sum."""
+        return torch.sum(x.contiguous(), dim=(-2, -1))
+
+    def total(self, x, x_faces: bool = False, compensated: bool = False):
+        """The sum of x over its last three axes: each grid-x plane summed
+        first, then the planes in x order; the same bits for a slab split
+        over any number of ranks (SlabGrid). x_faces: x is on the x faces
+        (nx+1 planes). compensated: an f32 x's plane sums are added in
+        f64 and the total rounded once (utils/accum.py)."""
+        p = self.plane_sums(x, x_faces)
+        if compensated and p.dtype != torch.float64:
+            return torch.sum(p, dim=-1, dtype=torch.float64).to(p.dtype)
+        return torch.sum(p, dim=-1)
+
+    def mean(self, x, x_faces: bool = False):
+        """total(x) over the domain's count of its elements."""
+        planes = self.whole_nx + (1 if x_faces else 0)
+        n = x.numel() // x.shape[-3] * planes
+        return self.total(x, x_faces) / n
+
+    @property
+    def whole_nx(self) -> int:
+        return self.nx
+
+    def cell_value(self, x, ijk):
+        """x[ijk] at the domain's cell ijk, on every rank."""
+        return x[tuple(ijk)]
+
+    def join(self, x, axis=None):
+        """x of the whole domain: x itself here; a slab's x gathered from
+        the ranks along `axis` (by default the third from last: grid-x of
+        a field; a flat axis of its cells works alike)."""
+        return x
+
+    @property
+    def domain(self) -> "Grid":
+        """The whole domain's Grid (this one; a slab's whole)."""
+        return self
+
+    def slab(self, x_start: int, n: int, comm) -> "SlabGrid":
+        """The planes [x_start, x_start + n) of grid-x as one rank's
+        SlabGrid; `comm` (parallel/comm.Comm) exchanges with the others."""
+        faces = None if self.uniform else (
+            tuple(self.faces[0][x_start:x_start + n + 1]), self.faces[1],
+            self.faces[2])
+        return SlabGrid(nx=n, ny=self.ny, nz=self.nz, dx=self.dx,
+                        dy=self.dy, dz=self.dz, x0=self.x0, y0=self.y0,
+                        z0=self.z0, faces=faces, whole=self,
+                        x_start=x_start, comm=comm)
+
     def zeros(self, dtype=torch.float64, device=None):
         return torch.zeros(self.shape, dtype=dtype, device=device)
 
@@ -298,3 +380,105 @@ class Grid:
             torch.zeros((self.nx, self.ny, self.nz + 1), dtype=dtype,
                         device=device),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabGrid(Grid):
+    """Planes [x_start, x_start + nx) of grid-x of the Grid `whole`: one
+    rank's part of a fluid split along x (parallel/step.py), the
+    analogue of an OpenFOAM processor mesh. Its cell and face fields are
+    the slab's ((nx, ny, nz) cells, (nx+1, ny, nz) x faces, the faces on
+    a seam held by both ranks alike); its geometry is the whole grid's,
+    sliced, so every stencil's arithmetic is the whole grid's, cell by
+    cell. A side of grid-x that is a seam with a neighbour's slab is
+    the processor patch: the stencils read the neighbour's ghost plane
+    (`halo`) and treat the seam's face as an internal face. The domain's
+    own x patches stay on the first and last slab, where a cyclic patch
+    reads its ghost plane from the slab across the wrap. `locate`, `hi`
+    and the domain lengths are the whole grid's; reductions and `join`
+    go through `comm`."""
+
+    whole: Grid = None
+    x_start: int = 0
+    comm: object = dataclasses.field(default=None, compare=False)
+
+    def seams(self, a: int):
+        if a != 0:
+            return False, False
+        return self.x_start > 0, self.x_start + self.nx < self.whole.nx
+
+    @property
+    def whole_nx(self) -> int:
+        return self.whole.nx
+
+    def axis_faces(self, a: int) -> np.ndarray:
+        if a != 0:
+            return self.whole.axis_faces(a)
+        return self.whole.axis_faces(0)[self.x_start:
+                                        self.x_start + self.nx + 1]
+
+    def _internal(self, arr):
+        """The whole grid's internal-face array cut to this slab's faces
+        with a cell (or a ghost cell) on both sides."""
+        lo, hi = self.seams(0)
+        f0 = self.x_start if lo else self.x_start + 1
+        f1 = self.x_start + self.nx if hi else self.x_start + self.nx - 1
+        return arr[f0 - 1:f1]
+
+    def internal_weights(self, a: int) -> np.ndarray:
+        if a != 0:
+            return self.axis_weights(a)
+        return self._internal(self.whole.axis_weights(0))
+
+    def internal_inv_dists(self, a: int) -> np.ndarray:
+        if a != 0:
+            return 1.0 / self.axis_dists(a)[1:-1]
+        return self._internal(self.whole.internal_inv_dists(0))
+
+    def axis_ends(self, a: int):
+        return self.whole.axis_ends(a)
+
+    @property
+    def hi(self):
+        return self.whole.hi
+
+    @property
+    def total_volume(self) -> float:
+        return self.whole.total_volume
+
+    def locate(self, pos):
+        """The domain's cells (N, 3), as Grid.locate."""
+        return self.whole.locate(pos)
+
+    def plane_sums(self, x, x_faces: bool = False):
+        p = torch.sum(x.contiguous(), dim=(-2, -1))
+        if self.comm.ranks == 1:
+            return p
+        parts = self.comm.gather_planes(p)
+        if x_faces:     # a seam's face once: the slab above it holds it
+            parts = [q.narrow(-1, 0, self.nx) for q in parts[:-1]] \
+                + [parts[-1]]
+        return torch.cat(parts, dim=-1)
+
+    def cell_value(self, x, ijk):
+        i = int(ijk[0])
+        owner = i // self.nx
+        local = x[(i - self.x_start,) + tuple(ijk[1:])] \
+            if owner == self.comm.rank else None
+        return self.comm.broadcast_cell(local, owner, x)
+
+    def join(self, x, axis=None):
+        if self.comm.ranks == 1:
+            return x
+        return self.comm.all_gather_rows(
+            x, axis=x.ndim - 3 if axis is None else axis)
+
+    @property
+    def domain(self) -> Grid:
+        return self.whole
+
+    def halo(self, x, dim: int):
+        """(lo, hi) ghost planes of x along `dim` (its grid-x axis): the
+        planes beyond each end of the slab, wrapping cyclically
+        (parallel/comm.Comm.halo)."""
+        return self.comm.halo(x, dim)

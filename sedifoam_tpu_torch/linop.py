@@ -11,6 +11,12 @@ stencils. The discretized equation is  sum(apply)(x) == sum(rhs).
 - the pressure Poisson is solved with the matrix-free PCG in linsolve.py.
 
 Sign convention: terms appear with the sign they carry on the equation LHS.
+
+On a slab of a fluid split along grid-x (grid.SlabGrid) a seam's face is
+an internal face of the slab padded with the neighbour's ghost plane
+(ops._seam_pad): its coefficients go to the slab's own cell in the order
+the whole grid adds them, and the boundary-patch coefficients go to the
+domain's own sides only.
 """
 
 from __future__ import annotations
@@ -197,6 +203,7 @@ def div(phi: FaceField, field, grid: Grid, fbc: _bc.FieldBC,
         else:
             bcoef.append((_conv_coeffs(lo_p, True, pm[:1], grid, t),
                           _conv_coeffs(hi_p, False, pm[-1:], grid, t)))
+    seams = [grid.seams(a) for a in range(3)]
 
     def apply_fn(x):
         out = torch.zeros_like(x)
@@ -204,19 +211,23 @@ def div(phi: FaceField, field, grid: Grid, fbc: _bc.FieldBC,
             pm = ops._mv(phi[a], a)
             wm = ops._mv(weights[a], a)
             xm = ops._mv(x, a)
+            xp, lo, hi, o_lo, o_hi = ops._seam_pad(xm, grid, a)
+            inner = ops._inner(pm.shape[0], lo, hi)
             # internal faces
-            fval = wm[1:-1] * xm[:-1] + (1.0 - wm[1:-1]) * xm[1:]
-            Fint = pm[1:-1] * fval
+            fval = wm[inner] * xp[:-1] + (1.0 - wm[inner]) * xp[1:]
+            Fint = pm[inner] * fval
             if bcoef[a] is None:
-                wrapval = 0.5 * (xm[-1:] + xm[:1])
-                Flo = pm[:1] * wrapval
-                Fhi = pm[-1:] * wrapval
+                # the cyclic patch: o_lo is the domain's last plane, o_hi
+                # its first
+                Flo = pm[:1] * (0.5 * (o_lo + xm[:1]))
+                Fhi = pm[-1:] * (0.5 * (xm[-1:] + o_hi))
             else:
                 # linear part only: boundary-value contributions live in rhs
                 (ic_lo, _), (ic_hi, _) = bcoef[a]
                 Flo = pm[:1] * ic_lo * xm[:1]
                 Fhi = pm[-1:] * ic_hi * xm[-1:]
-            F = torch.cat([Flo, Fint, Fhi], dim=0)
+            F = ops._join_faces(None if lo else Flo, Fint,
+                                None if hi else Fhi)
             out = out + ops._mvback(F[1:] - F[:-1], a)
         return out
 
@@ -226,21 +237,29 @@ def div(phi: FaceField, field, grid: Grid, fbc: _bc.FieldBC,
     for a in range(3):
         pm = ops._mv(phi[a], a)
         wm = ops._mv(weights[a], a)
-        dm = torch.zeros_like(ops._mv(diag, a))
-        rm = torch.zeros_like(dm)
+        lo, hi = (int(s) for s in seams[a])
+        inner = ops._inner(pm.shape[0], lo, hi)
+        # the cells of the axis, a seam's ghost cell included
+        dp = pm.new_zeros((pm.shape[0] - 1 + lo + hi,) + pm.shape[1:])
         # internal faces: owner j gets +phi*w (its hi face), neighbor j+1
         # gets -phi*(1-w) (its lo face)
-        dm[:-1] += pm[1:-1] * wm[1:-1]
-        dm[1:] += -pm[1:-1] * (1.0 - wm[1:-1])
+        dp[:-1] += pm[inner] * wm[inner]
+        dp[1:] += -pm[inner] * (1.0 - wm[inner])
+        dm = dp[lo:dp.shape[0] - hi]
+        rm = torch.zeros_like(dm)
         if bcoef[a] is None:
-            dm[:1] += -pm[:1] * 0.5
-            dm[-1:] += pm[-1:] * 0.5
+            if not lo:
+                dm[:1] += -pm[:1] * 0.5
+            if not hi:
+                dm[-1:] += pm[-1:] * 0.5
         else:
             (ic_lo, bv_lo), (ic_hi, bv_hi) = bcoef[a]
-            dm[:1] += -pm[:1] * ic_lo
-            dm[-1:] += pm[-1:] * ic_hi
-            rm[:1] += pm[:1] * bv_lo
-            rm[-1:] += -pm[-1:] * bv_hi
+            if not lo:
+                dm[:1] += -pm[:1] * ic_lo
+                rm[:1] += pm[:1] * bv_lo
+            if not hi:
+                dm[-1:] += pm[-1:] * ic_hi
+                rm[-1:] += -pm[-1:] * bv_hi
         diag = diag + ops._mvback(dm, a)
         rhs = rhs + ops._mvback(rm, a)
 
@@ -307,11 +326,15 @@ def laplacian(gamma_face, grid: Grid, fbc: _bc.FieldBC,
             inv_lo = 1.0 / (0.5 * d_lo)
             inv_hi = 1.0 / (0.5 * d_hi)
             inv_cyc = 1.0 / d_cyc
-        coef_int = gm[1:-1] * area_m * inv_int
-        dm = torch.zeros_like(ops._mv(diag, a))
+        lo, hi = (int(s) for s in grid.seams(a))
+        coef_int = gm[ops._inner(gm.shape[0], lo, hi)] * area_m * inv_int
+        # the cells of the axis, a seam's ghost cell included
+        dp = torch.zeros((gm.shape[0] - 1 + lo + hi,) + gm.shape[1:],
+                         dtype=diag.dtype, device=diag.device)
+        dp[:-1] += -coef_int
+        dp[1:] += -coef_int
+        dm = dp[lo:dp.shape[0] - hi]
         rm = torch.zeros_like(dm)
-        dm[:-1] += -coef_int
-        dm[1:] += -coef_int
         lo_p, hi_p = fbc.axis(a)
 
         def _bnd(patch, is_lo, gslab, inv_b, idx):
@@ -337,8 +360,11 @@ def laplacian(gamma_face, grid: Grid, fbc: _bc.FieldBC,
             # zero flux, nothing to add
             return zero, zero
 
-        for is_lo, patch, gslab, inv_b in ((True, lo_p, gm[:1], inv_lo),
-                                           (False, hi_p, gm[-1:], inv_hi)):
+        for is_lo, patch, gslab, inv_b, seam in (
+                (True, lo_p, gm[:1], inv_lo, lo),
+                (False, hi_p, gm[-1:], inv_hi, hi)):
+            if seam:
+                continue
             idx = slice(0, 1) if is_lo else slice(-1, None)
             d_add, r_add = _bnd(patch, is_lo, gslab, inv_b, idx)
             dm[idx] += d_add

@@ -17,6 +17,12 @@ counts at every replay) and turns them into numbers when read.
 
 ``pcg_multi`` drives a batch of systems that share one operator (the
 smoothing's PCG branch, coupling/smoothing.py with USE_FASTDIAG off).
+
+`grid`: the fluid's Grid, whose `total` and `mean` reduce a field plane
+by plane along grid-x and, on a slab of a fluid split over ranks
+(grid.SlabGrid), over the ranks: the dots, norms and the stop rule are
+then the same on every rank, and equal to one process's bit for bit.
+Without one the reductions are plain torch.sum and torch.mean.
 """
 
 from __future__ import annotations
@@ -98,12 +104,20 @@ class SolveResult(NamedTuple):
     n_iterations: torch.Tensor
 
 
-def norm_factor(apply_fn: Callable, x, b):
+def _reductions(grid):
+    """(total, mean) over a field's cells: the grid's, or torch's."""
+    if grid is None:
+        return torch.sum, torch.mean
+    return grid.total, grid.mean
+
+
+def norm_factor(apply_fn: Callable, x, b, grid=None):
     """OpenFOAM lduMatrix::normFactor."""
-    xref = torch.mean(x)
+    total, mean = _reductions(grid)
+    xref = mean(x)
     Aref = apply_fn(torch.zeros_like(x) + xref)
     Ax = apply_fn(x)
-    return torch.sum(torch.abs(Ax - Aref) + torch.abs(b - Aref)) + _SMALL
+    return total(torch.abs(Ax - Aref) + torch.abs(b - Aref)) + _SMALL
 
 
 def _dtype_tol_floor(dtype) -> float:
@@ -123,7 +137,7 @@ def _safe_ratio(num, den):
 
 def pcg(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
         rel_tol: float = 0.0, max_iter: int = 1000,
-        precond: Callable = None) -> SolveResult:
+        precond: Callable = None, grid=None) -> SolveResult:
     """Preconditioned conjugate gradient (Jacobi unless `precond` given).
 
     apply_fn must be LINEAR and symmetric (positive or negative) definite
@@ -137,9 +151,10 @@ def pcg(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
                                      diag)
         precond = lambda r: inv_diag * r  # noqa: E731 (Jacobi default)
 
-    nf = norm_factor(apply_fn, x0, b)
+    total, _ = _reductions(grid)
+    nf = norm_factor(apply_fn, x0, b, grid)
     r0 = b - apply_fn(x0)
-    res0 = torch.sum(torch.abs(r0)) / nf
+    res0 = total(torch.abs(r0)) / nf
 
     def cond(state):
         x, r, p, rz, it, res, best, stall = state
@@ -149,16 +164,16 @@ def pcg(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
     def body(state):
         x, r, p, rz_old, it, _, best, stall = state
         z = precond(r)
-        rz = torch.sum(r * z)
+        rz = total(r * z)
         beta = torch.where(it == 0, torch.zeros_like(rz),
                            _safe_ratio(rz, rz_old))
         p = z + beta * p
         Ap = apply_fn(p)
-        pAp = torch.sum(p * Ap)
+        pAp = total(p * Ap)
         alpha = _safe_ratio(rz, pAp)
         x = x + alpha * p
         r = r - alpha * Ap
-        res = torch.sum(torch.abs(r)) / nf
+        res = total(torch.abs(r)) / nf
         improved = res < 0.999 * best
         stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
         best = torch.minimum(best, res)
@@ -174,7 +189,8 @@ def pcg(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
 
 
 def pcg_multi(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
-              rel_tol: float = 0.0, max_iter: int = 1000) -> SolveResult:
+              rel_tol: float = 0.0, max_iter: int = 1000,
+              grid=None) -> SolveResult:
     """PCG for a batch of systems sharing one SPD operator.
 
     b, x0: (B, ...) with the batch axis leading; apply_fn acts on a
@@ -192,13 +208,17 @@ def pcg_multi(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
     def vapply(x):
         return torch.stack([apply_fn(x[i]) for i in range(x.shape[0])])
 
-    def dot(a, c):
-        return torch.sum(a * c, dim=axes)
+    def total(a):
+        """Per system: the sum over its cells."""
+        return torch.sum(a, dim=axes) if grid is None else grid.total(a)
 
-    nf = torch.stack([norm_factor(apply_fn, x0[i], b[i])
+    def dot(a, c):
+        return total(a * c)
+
+    nf = torch.stack([norm_factor(apply_fn, x0[i], b[i], grid)
                       for i in range(x0.shape[0])])
     r0 = b - vapply(x0)
-    res0 = torch.sum(torch.abs(r0), dim=axes) / nf
+    res0 = total(torch.abs(r0)) / nf
 
     def cond(state):
         x, r, p, rz, it, res, best, stall = state
@@ -218,7 +238,7 @@ def pcg_multi(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
         al = alpha.reshape(bshape)
         x = x + al * p
         r = r - al * Ap
-        res = torch.sum(torch.abs(r), dim=axes) / nf
+        res = total(torch.abs(r)) / nf
         worst = torch.max(res)
         improved = worst < 0.999 * best
         stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
@@ -234,7 +254,8 @@ def pcg_multi(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
 
 
 def bicgstab(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
-             rel_tol: float = 0.0, max_iter: int = 1000) -> SolveResult:
+             rel_tol: float = 0.0, max_iter: int = 1000,
+             grid=None) -> SolveResult:
     """Jacobi-preconditioned BiCGStab for nonsymmetric operators
     (convection-diffusion: the k/epsilon transport equations). Right
     preconditioning: solve A M^-1 y = b, x = M^-1 y. Stops as pcg does,
@@ -245,11 +266,12 @@ def bicgstab(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
     def prec_apply(v):
         return apply_fn(inv_diag * v)
 
-    nf = norm_factor(apply_fn, x0, b)
+    total, _ = _reductions(grid)
+    nf = norm_factor(apply_fn, x0, b, grid)
     y0 = diag * x0
     r0 = b - prec_apply(y0)
     rhat = r0
-    res0 = torch.sum(torch.abs(r0)) / nf
+    res0 = total(torch.abs(r0)) / nf
 
     def cond(state):
         y, r, p, v, rho, alpha, omega, it, res, best, stall = state
@@ -259,18 +281,18 @@ def bicgstab(apply_fn: Callable, b, x0, diag, tol: float = 1e-10,
 
     def body(state):
         y, r, p, v, rho_old, alpha, omega, it, _, best, stall = state
-        rho = torch.sum(rhat * r)
+        rho = total(rhat * r)
         beta = _safe_ratio(rho, rho_old) * _safe_ratio(alpha, omega)
         beta = torch.where(it == 0, torch.zeros_like(beta), beta)
         p = r + beta * (p - omega * v)
         v = prec_apply(p)
-        alpha = _safe_ratio(rho, torch.sum(rhat * v))
+        alpha = _safe_ratio(rho, total(rhat * v))
         s = r - alpha * v
         t = prec_apply(s)
-        omega = _safe_ratio(torch.sum(t * s), torch.sum(t * t))
+        omega = _safe_ratio(total(t * s), total(t * t))
         y = y + alpha * p + omega * s
         r = s - omega * t
-        res = torch.sum(torch.abs(r)) / nf
+        res = total(torch.abs(r)) / nf
         improved = res < 0.999 * best
         stall = torch.where(improved, torch.zeros_like(stall), stall + 1)
         best = torch.minimum(best, res)

@@ -12,6 +12,13 @@ are static (`bc.FieldBC`), so the branching is Python on the config.
 Layout: scalar cell fields are (nx, ny, nz); vector fields are
 (3, nx, ny, nz), component leading; face fields are `grid.FaceField` with
 the +axis orientation convention.
+
+On a slab of a fluid split along grid-x (grid.SlabGrid) a side of axis 0
+that is a seam with another rank's slab is a processor patch: the cell
+array is padded there with the neighbour's ghost plane (`_seam_pad`), the
+seam's face is computed as an internal face, and the boundary-patch
+branch runs on the domain's own sides only. The arithmetic of every
+cell and face is the whole grid's.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import numpy as np
 import torch
 
 from sedifoam_tpu_torch import bc as _bc
-from sedifoam_tpu_torch.grid import FaceField, Grid
+from sedifoam_tpu_torch.grid import FaceField, Grid, SlabGrid
 
 # OpenFOAM's SMALL/ROOTVSMALL analogues.
 SMALL = 1e-15
@@ -34,8 +41,30 @@ def inv_dist_internal(grid: Grid, axis: int, like):
     faces of a graded axis, on `like`'s dtype and device (Grid.const)."""
     return grid.const(
         ("inv_dist_internal", axis),
-        lambda: (1.0 / grid.axis_dists(axis)[1:-1])[:, None, None],
+        lambda: grid.internal_inv_dists(axis)[:, None, None],
         like.dtype, like.device)
+
+
+def _seam_pad(cm, grid: Grid, axis: int, dim: int = 0):
+    """(cp, lo, hi, other_lo, other_hi) for a cell array cm whose `axis`
+    lies along its dim `dim`: cp is cm with the ghost plane of each side
+    that is a seam (lo, hi: 1 where padded, else 0); other_lo/hi are the
+    planes across each end, the cyclic patch's other side (the domain's
+    own last and first planes on a whole grid)."""
+    if axis != 0 or not isinstance(grid, SlabGrid):
+        n = cm.shape[dim]
+        return cm, 0, 0, cm.narrow(dim, n - 1, 1), cm.narrow(dim, 0, 1)
+    seam_lo, seam_hi = grid.seams(0)
+    g_lo, g_hi = grid.halo(cm, dim)
+    parts = ([g_lo] if seam_lo else []) + [cm] + ([g_hi] if seam_hi else [])
+    cp = torch.cat(parts, dim=dim) if len(parts) > 1 else cm
+    return cp, int(seam_lo), int(seam_hi), g_lo, g_hi
+
+
+def _inner(n_faces: int, lo: int, hi: int):
+    """The slice of an axis's n_faces faces that have a cell (or a ghost
+    cell) on both sides: [1:-1] without seams."""
+    return slice(1 - lo, n_faces - 1 + hi)
 
 
 def _mv(a, axis):
@@ -112,20 +141,17 @@ def _boundary_sngrad(cell_slab, patch: _bc.PatchBC, lo: bool, d: float,
 
 def _axis_geom(grid: Grid, axis: int, like):
     """(w_lin (n-1,1,1) owner weights, inv_d (n-1,1,1) internal inverse
-    deltas, d_lo, d_hi, d_cyc) for one axis; scalars on uniform axes."""
+    deltas, d_lo, d_hi, d_cyc) for one axis; scalars on uniform axes. On
+    a slab's axis 0 the internal faces include its seams' faces."""
     if grid.uniform:
         d = grid.spacing[axis]
         return 0.5, 1.0 / d, d, d, d
     wl = grid.const(("axis_weights", axis),
-                    lambda: grid.axis_weights(axis)[:, None, None],
+                    lambda: grid.internal_weights(axis)[:, None, None],
                     like.dtype, like.device)
     inv_d = inv_dist_internal(grid, axis, like)
-
-    def ends():
-        w = grid.axis_widths(axis)
-        return float(w[0]), float(w[-1]), float(0.5 * (w[0] + w[-1]))
-
-    return (wl, inv_d) + grid.memo(("axis_ends", axis), ends)
+    return (wl, inv_d) + grid.memo(("axis_ends", axis),
+                                   lambda: grid.axis_ends(axis))
 
 
 def _region_mask(patch, grid, like):
@@ -157,19 +183,26 @@ def _axis_faces(c, axis: int, grid: Grid, fbc: _bc.FieldBC,
         return _boundary_sngrad(slab, patch, lo, d, other, phis, t,
                                 d_cyc=d_cyc)
 
+    cp, s_lo, s_hi, o_lo, o_hi = _seam_pad(cm, grid, axis)
+    phi_lo = None if phi_ax is None else phi_ax[:1]
+    phi_hi = None if phi_ax is None else phi_ax[-1:]
     if mode == "interp":
-        inner = w_lin * cm[:-1] + (1.0 - w_lin) * cm[1:]
-        lo = bval(cm[:1], lo_patch, True, cm[-1:],
-                  None if phi_ax is None else phi_ax[:1])
-        hi = bval(cm[-1:], hi_patch, False, cm[:1],
-                  None if phi_ax is None else phi_ax[-1:])
+        inner = w_lin * cp[:-1] + (1.0 - w_lin) * cp[1:]
+        lo = None if s_lo else bval(cm[:1], lo_patch, True, o_lo, phi_lo)
+        hi = None if s_hi else bval(cm[-1:], hi_patch, False, o_hi, phi_hi)
     else:
-        inner = (cm[1:] - cm[:-1]) * inv_d
-        lo = bgrad(cm[:1], lo_patch, True, d_lo, cm[-1:],
-                   None if phi_ax is None else phi_ax[:1])
-        hi = bgrad(cm[-1:], hi_patch, False, d_hi, cm[:1],
-                   None if phi_ax is None else phi_ax[-1:])
-    return _mvback(torch.cat([lo, inner, hi], dim=0), axis)
+        inner = (cp[1:] - cp[:-1]) * inv_d
+        lo = None if s_lo else bgrad(cm[:1], lo_patch, True, d_lo, o_lo,
+                                     phi_lo)
+        hi = None if s_hi else bgrad(cm[-1:], hi_patch, False, d_hi, o_hi,
+                                     phi_hi)
+    return _mvback(_join_faces(lo, inner, hi), axis)
+
+
+def _join_faces(lo, inner, hi):
+    """The faces of an axis: its boundary faces (None on a seam) around
+    the internal ones."""
+    return torch.cat([f for f in (lo, inner, hi) if f is not None], dim=0)
 
 
 def face_interp(c, grid: Grid, fbc: _bc.FieldBC,
@@ -271,13 +304,16 @@ def average_to_cells(fv: FaceField, grid: Grid,
         fm = _mv(fv[a], a)
         ones = torch.ones_like(fm)
         if fbc is not None:
+            seam_lo, seam_hi = grid.seams(a)
             lo_p, hi_p = fbc.axis(a)
-            if lo_p.kind == _bc.EMPTY or hi_p.kind == _bc.EMPTY:
+            lo_empty = lo_p.kind == _bc.EMPTY and not seam_lo
+            hi_empty = hi_p.kind == _bc.EMPTY and not seam_hi
+            if lo_empty or hi_empty:
                 fm, ones = fm.clone(), ones.clone()
-            if lo_p.kind == _bc.EMPTY:
+            if lo_empty:
                 fm[:1] = 0.0
                 ones[:1] = 0.0
-            if hi_p.kind == _bc.EMPTY:
+            if hi_empty:
                 fm[-1:] = 0.0
                 ones[-1:] = 0.0
         total = total + _mvback(0.5 * (fm[1:] + fm[:-1]), a)
@@ -295,9 +331,11 @@ def _limited_weights_axis(c, gradc, axis, grid, fbc, phi, k):
     scalar cell field c with Gauss gradient gradc (3, ...); boundary
     faces get weight 1 (unused: boundary convection takes the BC
     coefficient path)."""
-    cm = _mv(c, axis)
-    gm = _mv(gradc[axis], axis)  # d c/d x_axis at cells
-    phim = _mv(phi[axis], axis)[1:-1]  # internal faces
+    cm, lo, hi, _, _ = _seam_pad(_mv(c, axis), grid, axis)
+    # d c/d x_axis at cells
+    gm = _seam_pad(_mv(gradc[axis], axis), grid, axis)[0]
+    phim = _mv(phi[axis], axis)
+    phim = phim[_inner(phim.shape[0], lo, hi)]  # internal faces
     w_lin, inv_d, _, _, _ = _axis_geom(grid, axis, cm)
 
     phiP, phiN = cm[:-1], cm[1:]  # owner (lower), neighbor (upper)
@@ -316,7 +354,8 @@ def _limited_weights_axis(c, gradc, axis, grid, fbc, phi, k):
     w_up = (phim >= 0).to(cm.dtype)
     w = limiter * w_lin + (1.0 - limiter) * w_up
     pad = torch.ones_like(cm[:1])
-    return _mvback(torch.cat([pad, w, pad], dim=0), axis)
+    return _mvback(_join_faces(None if lo else pad, w, None if hi else pad),
+                   axis)
 
 
 def limited_weights(c, grid: Grid, fbc: _bc.FieldBC, phi: FaceField,
@@ -331,9 +370,13 @@ def _limited_weights_axis_vec(v, gradv, axis, grid, phi, k):
     """limitedLinearV owner weights on the internal faces of `axis`;
     boundary faces get weight 1 (unused)."""
     d = grid.spacing[axis]
-    vm = torch.stack([_mv(v[j], axis) for j in range(3)])          # (3, n, ...)
-    gm = torch.stack([_mv(gradv[j, axis], axis) for j in range(3)])
-    phim = _mv(phi[axis], axis)[1:-1]
+    # (3, n, ...)
+    vm, lo, hi, _, _ = _seam_pad(
+        torch.stack([_mv(v[j], axis) for j in range(3)]), grid, axis, dim=1)
+    gm = _seam_pad(torch.stack([_mv(gradv[j, axis], axis)
+                                for j in range(3)]), grid, axis, dim=1)[0]
+    phim = _mv(phi[axis], axis)
+    phim = phim[_inner(phim.shape[0], lo, hi)]
 
     dV = vm[:, 1:] - vm[:, :-1]                    # phiN - phiP (3, n-1, ...)
     gradf = torch.sum(dV * dV, dim=0)              # magSqr
@@ -351,7 +394,8 @@ def _limited_weights_axis_vec(v, gradv, axis, grid, phi, k):
     w_up = (phim >= 0).to(gradf.dtype)
     w = limiter * 0.5 + (1.0 - limiter) * w_up
     pad = torch.ones_like(vm[0, :1])
-    return _mvback(torch.cat([pad, w, pad], dim=0), axis)
+    return _mvback(_join_faces(None if lo else pad, w, None if hi else pad),
+                   axis)
 
 
 def limited_weights_vec(v, grid: Grid, vbc: _bc.FieldBC, phi: FaceField,
@@ -368,10 +412,12 @@ def weighted_face_value(c, w: FaceField, grid: Grid, fbc: _bc.FieldBC,
     lin = face_interp(c, grid, fbc, phi, t)  # supplies boundary values
 
     def _axis(a):
-        cm = _mv(c, a)
-        wm = _mv(w[a], a)[1:-1]
+        cm, lo, hi, _, _ = _seam_pad(_mv(c, a), grid, a)
+        wm = _mv(w[a], a)
+        wm = wm[_inner(wm.shape[0], lo, hi)]
         inner = wm * cm[:-1] + (1.0 - wm) * cm[1:]
         lm = _mv(lin[a], a)
-        return _mvback(torch.cat([lm[:1], inner, lm[-1:]], dim=0), a)
+        return _mvback(_join_faces(None if lo else lm[:1], inner,
+                                   None if hi else lm[-1:]), a)
 
     return FaceField(*(_axis(a) for a in range(3)))

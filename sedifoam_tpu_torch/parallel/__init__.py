@@ -16,16 +16,17 @@ group:
 - ``mesh``: ``make_mesh`` (a 1-D mesh of the group's ranks),
   ``placement`` (the JAX module's layout rules), ``shard_state`` /
   ``gather_state``, and ``Shard``, a rank's part in a split step;
-- ``comm``: the three collectives the step uses, with a byte counter;
+- ``comm``: the collectives the step uses, with a byte counter by kind;
 - ``step``: ``ShardedStep``, the coupled step split over the mesh;
 - ``launch``: ``run_ranks``, which starts ranks on one host.
 
 What is split: the particle arrays (rows, and the (K, N) table and the
 contact and wall histories along N), where the DEM's state and time go;
-the contact-chain kernel runs on each rank's own rows. What stays
-whole on every rank: the fluid grid, stepped by every rank alike. A
-grid-x split of the fluid (halo exchanges in the stencils, reduced dot
-products in the solvers, transposes in the FastDiag transforms) is
-queued in ROADMAP.md, with the capture of the split step as one CUDA
-graph and the combinations ``ShardedStep`` raises on.
+the contact-chain kernel runs on each rank's own rows. The fluid grid
+splits along grid-x where nx divides by the ranks (``grid.SlabGrid``:
+ghost planes in the stencils, plane-ordered reductions summed over the
+ranks, all-to-all transposes in the FastDiag x transform), else it is
+whole on every rank, stepped by every rank alike. The capture of the
+split step as one CUDA graph and the combinations ``ShardedStep``
+raises on are queued in ROADMAP.md.
 """

@@ -15,8 +15,11 @@ exchanges what its other rows are needed for.
   history, the largest DEM state; the dense backend's (3, N, N) history
   splits along its row axis (-2), which holds the own rows (the JAX
   module splits it along the last);
-- a grid field (.., nx, ny, nz) would split along grid-x: this port keeps
-  the fluid replicated (ROADMAP: the grid-x split of the fluid);
+- a grid field (.., nx, ny, nz) splits along grid-x where nx divides by
+  the ranks: each rank holds the planes [x_start, x_start + nx/R) of its
+  slab (grid.SlabGrid), the fields on x faces (.., nx+1, ny, nz) stay
+  whole, as the JAX rule keeps them; where nx does not divide, the whole
+  fluid is replicated (`fluid_layout` says which);
 - everything else is replicated.
 
 With ``DEMConfig.sort_on_rebuild`` the rows are sorted by bin at every
@@ -73,10 +76,12 @@ def make_mesh(n_devices=None, device=None) -> Mesh:
     return Mesh(ranks, rank, device)
 
 
-def placement(x, capacity: int, n_ranks: int):
+def placement(x, capacity: int, n_ranks: int, nx=None):
     """("split", axis) or ("replicate",) for an array of this shape in a
-    state of particle capacity `capacity`, over n_ranks ranks (the module
-    docstring has the rules)."""
+    state of particle capacity `capacity` and nx cells along grid-x,
+    over n_ranks ranks (the module docstring has the rules; without nx
+    any array of three or more axes whose third from last divides by
+    the ranks is taken as a grid field)."""
     shape = tuple(x.shape)
     nd = len(shape)
     if nd == 0:
@@ -92,10 +97,20 @@ def placement(x, capacity: int, n_ranks: int):
         if nd >= 3 and shape[-2] == capacity:     # the dense (3, N, N)
             return ("split", nd - 2)
         return ("split", nd - 1)
-    # a grid field (.., nx, ny, nz), which the JAX module splits along
-    # grid-x, falls through with the rest: kept replicated until the
-    # fluid's stencils, dots and transforms exchange halos (ROADMAP)
+    if nd >= 3 and (nx is None or shape[-3] == nx) \
+            and shape[-3] % n_ranks == 0:
+        return ("split", nd - 3)
     return REPLICATE
+
+
+def fluid_layout(nx: int, n_ranks: int) -> str:
+    """"slab": the fluid split along grid-x; "whole": replicated."""
+    return "slab" if nx % n_ranks == 0 else "whole"
+
+
+def _owned(path):
+    """Whether a state path is of the particles (else the fluid's)."""
+    return path.startswith("particles.")
 
 
 # the tensors of a ParticleState that hold no capacity axis, and those
@@ -145,9 +160,10 @@ def join_particles(ps, comm):
                           for k, a in axes.items() if a is not None})
 
 
-def _check_layout(state, n, ranks):
-    """Raise unless `placement` splits exactly what particle_axes splits,
-    and no tensor outside the particles."""
+def _check_layout(state, n, ranks, nx=None):
+    """Raise unless `placement` splits exactly what particle_axes splits
+    among the particles, and outside them grid-x of the grid fields of
+    nx planes, or nothing (no nx: a ParticleState)."""
     ps = state.particles if hasattr(state, "particles") else state
     if ps.rigid is not None:
         raise NotImplementedError("shard_state: rigid clumps are not split "
@@ -155,11 +171,16 @@ def _check_layout(state, n, ranks):
     axes = particle_axes(ps)
 
     def check(path, x):
-        place = placement(x, n, ranks)
+        place = placement(x, n, ranks, nx)
         name = path.split(".")[-1]
-        owned = path.startswith("particles.") or ps is state
-        want = ("split", axes[name]) if owned and axes[name] is not None \
-            else REPLICATE
+        owned = _owned(path) or ps is state
+        if owned:
+            want = ("split", axes[name]) if axes[name] is not None \
+                else REPLICATE
+        else:
+            grid_field = nx is not None and x.ndim >= 3 \
+                and x.shape[-3] == nx and nx % ranks == 0
+            want = ("split", x.ndim - 3) if grid_field else REPLICATE
         if place != want:
             raise ValueError(f"shard_state: {path} of shape "
                              f"{tuple(x.shape)} places as {place}, the "
@@ -184,18 +205,34 @@ def _on_particles(fn, state):
     return fn(state)
 
 
+def _grid_nx(state):
+    """nx of a SimState's fluid (its x-face fields stay whole), or None
+    for a ParticleState."""
+    return state.fluid.phi.x.shape[0] - 1 if hasattr(state, "fluid") \
+        else None
+
+
 def shard_state(state, mesh: Mesh):
     """This rank's SimState (or ParticleState) on mesh.device: each split
-    tensor cut to the rank's contiguous block of rows (a copy, not a
-    view), every other tensor as it is. Raises where the capacity does
-    not divide by the ranks, and where `placement` would place a tensor
-    otherwise than the split step cuts it (a grid dimension equal to the
-    capacity, a lattice state)."""
+    tensor cut to the rank's contiguous block (a copy, not a view): the
+    particle rows, and the grid-x planes of the grid fields where the
+    fluid splits (fluid_layout); every other tensor as it is. Raises
+    where the capacity does not divide by the ranks, and where
+    `placement` would place a tensor otherwise than the split step cuts
+    it (a grid dimension equal to the capacity, a lattice state)."""
     ps = state.particles if hasattr(state, "particles") else state
-    _check_layout(state, ps.n_capacity, mesh.ranks)
+    nx = _grid_nx(state)
+    _check_layout(state, ps.n_capacity, mesh.ranks, nx)
     local = _on_particles(
         lambda p: split_particles(p, mesh.rank, mesh.ranks), state)
-    return _map(lambda _, x: x.to(mesh.device), local)
+
+    def cut(path, x):
+        if nx is not None and not _owned(path):
+            place = placement(x, ps.n_capacity, mesh.ranks, nx)
+            if place != REPLICATE:
+                x = _block(x, place[1], mesh.rank, mesh.ranks)
+        return x.to(mesh.device)
+    return _map(cut, local)
 
 
 def gather_state(state, mesh: Mesh, comm=None):
@@ -204,7 +241,17 @@ def gather_state(state, mesh: Mesh, comm=None):
     parallel.comm.Comm to gather with (one is made when None)."""
     from sedifoam_tpu_torch.parallel.comm import Comm
     comm = comm or Comm()
-    return _on_particles(lambda p: join_particles(p, comm), state)
+    whole = _on_particles(lambda p: join_particles(p, comm), state)
+    nx = _grid_nx(state)
+    if nx is None or fluid_layout(nx, mesh.ranks) == "whole":
+        return whole
+
+    def join(path, x):
+        if not _owned(path) and x.ndim >= 3 and \
+                x.shape[-3] * mesh.ranks == nx:
+            return comm.all_gather_rows(x, axis=x.ndim - 3)
+        return x
+    return _map(join, whole)
 
 
 class Shard:

@@ -100,7 +100,8 @@ def coupled_step(state: SimState, cfg: SimConfig, smoother=None,
     `pprecond` are the prebuilt FastDiag operators (CoupledStep holds
     them); each is built on the fly when None. `shard`: one rank's part
     in a step split over ranks (parallel/step.ShardedStep): the
-    particles are its own block of rows, the fluid is whole."""
+    particles are its own block of rows; the fluid is whole, or its
+    x-slab where cfg.grid is the rank's grid.SlabGrid."""
     grid, bcs = cfg.grid, cfg.bcs
     fluid, particles = state.fluid, state.particles
 

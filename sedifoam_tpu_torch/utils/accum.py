@@ -24,6 +24,13 @@ grid gives. (An error-free pairwise tree in float32 would need log2(m)
 levels of two-sums and a compensation array for the same result.) f64
 inputs and inputs of at most one block take a plain sum.
 
+Given the fluid's Grid (`grid=`), a grid field is summed by the grid
+instead: each grid-x plane, then the planes in x order (grid.Grid.total),
+the plane sums of an f32 field added in float64 and rounded once; on a
+slab of a fluid split over ranks (grid.SlabGrid) the planes are
+gathered from the ranks first, so every rank has the one-process sum
+bit for bit.
+
 The policy knob (`FluidConfig.dtype_policy` / the `policy=` argument):
   "compensated" (default)  — the scheme above on the native dtype
   "native"                 — plain torch.sum
@@ -45,8 +52,11 @@ def _flat(x):
     return x.reshape(-1)
 
 
-def stable_sum(x, policy: str = "compensated"):
-    """Scalar sum of all elements of `x` with compensated accumulation."""
+def stable_sum(x, policy: str = "compensated", grid=None):
+    """Scalar sum of all elements of `x` with compensated accumulation
+    (of a grid field (nx, ny, nz) of `grid`: plane by plane)."""
+    if grid is not None:
+        return grid.total(x, compensated=policy != "native")
     x = _flat(x)
     if policy == "native" or x.dtype == torch.float64 or \
             x.numel() <= _BLOCK:
@@ -59,9 +69,11 @@ def stable_sum(x, policy: str = "compensated"):
     return torch.sum(partials, dtype=torch.float64).to(x.dtype)
 
 
-def stable_dot(a, b, policy: str = "compensated"):
+def stable_dot(a, b, policy: str = "compensated", grid=None):
     """Compensated sum(a*b) — the weighted means of chPressureGrad and
     the V-weighted audit totals."""
+    if grid is not None:
+        return stable_sum(a * b, policy, grid)
     a = a.reshape(-1) if isinstance(a, torch.Tensor) else a
     b = b.reshape(-1) if isinstance(b, torch.Tensor) else b
     return stable_sum(a * b, policy)

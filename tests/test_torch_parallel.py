@@ -23,7 +23,7 @@ backends); the plain contact chain on halves of the rows
 (contact_chain_reference(rows=...)) equals the columns of the whole
 call bit for bit; `placement` classifies every tensor of the tiny binned
 state as the JAX package's shard_state(..., make_mesh(8)) does, but for
-the grid fields the port keeps whole (listed below); the binned case on
+the grid fields the port keeps whole (listed below: none); the binned case on
 2 ranks equals the port's one-rank step through three steps whose
 rebuilds move particles between the ranks (measured: 2 particles
 changed ranks; p within 4.3e-16, vel 1.1e-16 of scale, pos 0 apart; the
@@ -63,16 +63,10 @@ ge = importlib.import_module("__graft_entry__")
 RANKS = [2, 4]
 TIMEOUT = 240.0            # seconds a spawn of ranks may take
 # the tiny binned state's grid tensors that the JAX package splits along
-# grid-x and the port keeps whole on every rank
-GRID_KEPT_WHOLE = {
-    f"fluid.{k}" for k in (
-        "alpha", "p", "Ua", "Ub", "alpha_old", "Ua_old", "Ub_old",
-        "DDtUa", "DDtUb", "Asrc", "drag_coef", "lift_coeff", "k",
-        "epsilon", "nut", "ibm_indicator", "turbulence_force",
-        "dns_f_hat")} | {
-    f"fluid.{f}.{c}" for f in ("phia", "phib", "phi", "phia_old",
-                               "phib_old") for c in "yz"} | {
-    "uf_smoothed", "uf_smoothed_old"}
+# grid-x and the port keeps whole on every rank: none since the port
+# splits the fluid along grid-x as the JAX package does (the fields on x
+# faces, nx + 1 planes, stay whole in both)
+GRID_KEPT_WHOLE = set()
 
 
 def _case(kind):
