@@ -2621,6 +2621,12 @@ SHARDED_REBUILD_STEPS = 1  # of the bench bed rebuilt at every substep
 SHARDED_RANKS = 2
 SHARDED_TOL = 1e-5        # of each field's scale, where not bit for bit
 SHARDED_TIMEOUT = 600     # seconds a spawn of ranks may take
+SPLIT_LATTICE = dict(n_particles=32768, nx=32, ny=16, nz=32)  # cut in depth
+SPLIT_DNS_ROWS = 8192
+SPLIT_DELETE_ROWS = 4     # active rows placed in jetFlow's delete box
+SPLIT_WIGGLE = dict(wiggle=True, wiggle_axis=1, amplitude=2e-4, period=0.01)
+SPLIT_WALL_LO = 6e-4      # the wiggled floor 0.1 mm into the lowest layer
+OWN_ROW_KS = (16, 29, 160)   # new own-row launch shapes, timed
 TABLES = ("nbr_idx", "shear", "wall_shear", "pos")
 FIELDS = ("p", "Ub", "alpha")
 
@@ -2644,6 +2650,247 @@ def field_errs(a, b):
     return out
 
 
+def chain_halves(label, p, d, tol):
+    """The kernel on each half of p's rows (rows=(r0, N/2), against
+    partners in all rows) equals the whole launch's columns bit for bit
+    in force, torque, shear and wall shear, and agrees with the plain
+    version on the same rows within `tol` of scale; the walls fused as
+    dem/integrate.compute_forces fuses them. Returns the plain version's
+    worst relative error by output."""
+    import torch
+    from sedifoam_tpu_torch.dem import fused
+    walls = d.walls if fused.walls_fusible(d.walls) else ()
+    plen = d.periodic_len()
+    n = p.n_capacity
+    half = n // 2
+    args = (d.pair, d.dt)
+    whole = fused._launch(tree_map(torch.clone, p), *args, p.nbr_idx, True,
+                          plen, walls)
+    errs = {}
+    for r0 in (0, half):
+        own = slice(r0, r0 + half)
+
+        def block():
+            return p._replace(shear=p.shear[..., own].clone(),
+                              wall_shear=p.wall_shear[..., own].clone())
+        idx = p.nbr_idx[:, own].contiguous()
+        got = fused._launch(block(), *args, idx, True, plen, walls,
+                            rows=(r0, half))
+        ref = fused.contact_chain_reference(block(), *args, idx, True, plen,
+                                            walls, rows=(r0, half))
+        for name, w, g, rf in zip(("force", "torque", "shear", "wall_shear"),
+                                  whole, got, ref):
+            if w is None:       # no wall fused: no wall shear out
+                if g is not None:
+                    fail(f"sharded: the kernel on rows [{r0}, {r0 + half}) "
+                         f"of the {label} returns a {name} the whole "
+                         "launch does not")
+                continue
+            part = w[own] if name in ("force", "torque") else w[..., own]
+            if not torch.equal(part, g):
+                fail(f"sharded: the kernel on rows [{r0}, {r0 + half}) of "
+                     f"the {label} differs from the whole launch in {name}")
+            errs[name] = max(errs.get(name, 0.0), rel_err(rf, g))
+    say(f"sharded [kernel rows, {label}, N {n}, K {p.nbr_idx.shape[0]}]: "
+        f"the halves [0, {half}) and [{half}, {n}) equal the whole launch "
+        "bit for bit in force, torque, shear and wall shear; against the "
+        "plain version on the same rows: " + ", ".join(
+            f"{x} {v:.3e}" for x, v in errs.items()) + f" (tol {tol:.0e})")
+    if max(errs.values()) > tol:
+        fail(f"sharded: a half of the rows of the {label} disagrees with the "
+             f"plain version: {errs}")
+    return errs
+
+
+def split_jetflow(dev):
+    """jetFlow as its validator loads it (65,536 rows, K = 16), at full
+    capacity (the split step takes no window), with two set-up edits: the
+    countdown at 0, so that an add fires in step 1, and SPLIT_DELETE_ROWS
+    rows made active in the delete box (copies of an active particle
+    with fresh tags), so that the deletion fires too."""
+    import torch
+    cfg, state, _, _ = load_jetflow(dev)
+    ps = state.particles
+    box = cfg.cloud.delete_box
+    src = int(torch.argmax(ps.active.to(torch.int32)))
+    rows = torch.arange(ps.n_capacity - SPLIT_DELETE_ROWS, ps.n_capacity,
+                        device=dev)
+    if bool(ps.active[rows].any()) or not bool(ps.active[src]):
+        fail("split jetFlow: no active particle to copy or no free rows")
+    fields = {}
+    for name, x in zip(ps._fields, ps):
+        if isinstance(x, torch.Tensor) and x.ndim >= 1 and \
+                x.shape[0] == ps.n_capacity:
+            y = x.clone()
+            y[rows] = x[src]
+            fields[name] = y
+    frac = torch.linspace(0.2, 0.8, SPLIT_DELETE_ROWS, device=dev,
+                          dtype=ps.pos.dtype)
+    pos = fields["pos"]
+    for a in range(3):
+        lo, hi = box[2 * a], box[2 * a + 1]
+        pos[rows, a] = lo + (hi - lo) * (frac if a == 0 else 0.5)
+    fields["pos_at_build"][rows] = pos[rows]
+    fields["vel"][rows] = 0.0
+    fields["tag"][rows] = int(ps.tag.max()) + 1 + torch.arange(
+        SPLIT_DELETE_ROWS, device=dev, dtype=ps.tag.dtype)
+    ps = ps._replace(time_to_add=torch.zeros_like(ps.time_to_add), **fields)
+    return cfg, state._replace(particles=ps)
+
+
+def split_clumps(dev):
+    """The irregular case at full width, as phase_clumps loads it."""
+    from sedifoam_tpu_torch import cases
+    from sedifoam_tpu_torch.solver import CoupledStep
+    cfg, fluid, parts, _, _ = load_clumps(
+        dev, cases.IRREGULAR_FULL["counts"])
+    return cfg, CoupledStep(cfg, parts.pos.dtype, dev).initialize(fluid,
+                                                                  parts)
+
+
+def split_extras(dev):
+    """The bench bed with the unretarded cohesion and lubrication on
+    (cases.extras_bed: K = 29), rows sorted at each rebuild."""
+    import torch
+    from sedifoam_tpu_torch import bench_case, cases
+    from sedifoam_tpu_torch.solver import CoupledStep
+    full = bench_case.FULL
+    cfg = bench_case.build_config(**full, sort_on_rebuild=True)
+    dem, parts = cases.extras_bed(full["n_particles"], cohesion_model=1,
+                                  lubrication=True, dtype=torch.float32,
+                                  device=dev)
+    cfg = dataclasses.replace(cfg, dem=dataclasses.replace(
+        dem, sort_on_rebuild=True))
+    fluid, _ = bench_case.build_state(cfg, 1, torch.float32, dev)
+    return cfg, CoupledStep(cfg, torch.float32, dev).initialize(fluid, parts)
+
+
+def split_moving_wall(dev):
+    """The bench bed (K = 8, sorted at each rebuild) with its lower y
+    wall raised to SPLIT_WALL_LO and wiggling along y (SPLIT_WIGGLE, as
+    tests/test_torch_extras.py's wall-bounded volume sets one): walls
+    the kernel cannot fuse, through walls.wall_forces."""
+    import torch
+    from sedifoam_tpu_torch import bench_case
+    from sedifoam_tpu_torch.dem.fused import walls_fusible
+    from sedifoam_tpu_torch.solver import CoupledStep
+    full = bench_case.FULL
+    cfg = bench_case.build_config(**full, sort_on_rebuild=True)
+    walls = tuple(dataclasses.replace(w, lo=SPLIT_WALL_LO, **SPLIT_WIGGLE)
+                  if w.style == "yplane" else w for w in cfg.dem.walls)
+    cfg = dataclasses.replace(cfg, dem=dataclasses.replace(cfg.dem,
+                                                           walls=walls))
+    if walls_fusible(walls):
+        fail("split moving wall: the kernel would fuse the wiggled wall")
+    fluid, parts = bench_case.build_state(cfg, full["n_particles"],
+                                          torch.float32, dev)
+    return cfg, CoupledStep(cfg, torch.float32, dev).initialize(fluid, parts)
+
+
+def split_dns(dev):
+    """phase_dns's DNS_N^3 cyclic box (0.08 m) and forcing parameters,
+    with the bench's spheres: SPLIT_DNS_ROWS rows of the bench lattice in
+    its lower part, the DEM cyclic in x and z between y walls; the
+    bench's time steps. Constructed: the repo holds no IBM-DNS case
+    directory."""
+    import torch
+    from sedifoam_tpu_torch import bc, bench_case
+    from sedifoam_tpu_torch.fluid.state import FluidBCs
+    from sedifoam_tpu_torch.grid import Grid
+    from sedifoam_tpu_torch.solver import CoupledStep
+    n, L = DNS_N, 0.08
+    cfg = bench_case.build_config(SPLIT_DNS_ROWS, nx=n, ny=n, nz=n,
+                                  sort_on_rebuild=True)
+    cyc = bc.PatchBC(bc.CYCLIC)
+    cyc3 = bc.PatchBC(bc.CYCLIC, (0.0, 0.0, 0.0))
+    bcs = FluidBCs(alpha=bc.FieldBC(*(cyc for _ in range(6))),
+                   p=bc.FieldBC(*(cyc for _ in range(6))),
+                   Ub=bc.FieldBC(*(cyc3 for _ in range(6))),
+                   Ua=bc.FieldBC(*(cyc3 for _ in range(6))))
+    fluid_cfg = dataclasses.replace(
+        cfg.fluid, gravity=(0.0, 0.0, 0.0), add_dns_force=True,
+        dns_alpha=1.0, dns_sigma=0.5, dns_k_upper=600.0, dns_k_lower=0.0)
+    walls = tuple(dataclasses.replace(w, hi=L) for w in cfg.dem.walls
+                  if w.style == "yplane")
+    dem = dataclasses.replace(cfg.dem, walls=walls, domain_hi=(L, L, L),
+                              periodic=(True, False, True))
+    cfg = dataclasses.replace(cfg, grid=Grid(nx=n, ny=n, nz=n, dx=L / n,
+                                             dy=L / n, dz=L / n),
+                              bcs=bcs, fluid=fluid_cfg, dem=dem)
+    fluid, parts = bench_case.build_state(cfg, SPLIT_DNS_ROWS, torch.float32,
+                                          dev)
+    fluid = fluid._replace(Ub=torch.zeros_like(fluid.Ub))
+    return cfg, CoupledStep(cfg, torch.float32, dev).initialize(fluid, parts)
+
+
+def split_lattice(dev):
+    """The bench bed on the lattice at SPLIT_LATTICE: 32,768 particles,
+    the grid cut to 16 cells in y (the lattice's slot table and history
+    scale with the domain, and each rank holds them whole)."""
+    import torch
+    from sedifoam_tpu_torch import bench_case
+    from sedifoam_tpu_torch.solver import CoupledStep
+    cfg = bench_case.build_config(**SPLIT_LATTICE, backend="lattice")
+    fluid, parts = bench_case.build_state(
+        cfg, SPLIT_LATTICE["n_particles"], torch.float32, dev)
+    return cfg, CoupledStep(cfg, torch.float32, dev).initialize(fluid, parts)
+
+
+# the configurations phase_sharded splits beside the bench bed and the
+# channel: (label, builder)
+SPLIT_CONFIGS = (("jetFlow", split_jetflow), ("irregular clumps", split_clumps),
+                 ("extras bed", split_extras),
+                 ("moving wall", split_moving_wall), ("DNS box", split_dns),
+                 ("lattice", split_lattice))
+
+
+def own_rows_timing(label, p, d, smi):
+    """The kernel on the second half of p's rows: device time (profiler,
+    PROFILE_REPS launches on clones), its bound, host microseconds per
+    contact_chain call (HOST_CALLS calls), and the plain version's
+    milliseconds on the same rows (CUDA events). Launches made here do
+    not count."""
+    import torch
+    from sedifoam_tpu_torch.dem import fused
+    walls = d.walls if fused.walls_fusible(d.walls) else ()
+    plen = d.periodic_len()
+    n = p.n_capacity
+    half = n // 2
+    counted = launch_snapshot()
+
+    def block():
+        return p._replace(shear=p.shear[..., half:].clone(),
+                          wall_shear=p.wall_shear[..., half:].clone())
+    idx = p.nbr_idx[:, half:].contiguous()
+    args = (d.pair, d.dt, idx, True, plen, walls)
+    clones = [block() for _ in range(PROFILE_REPS)]
+    us, how, _ = device_us(lambda r: fused._launch(clones[r], *args,
+                                                   rows=(half, half)))
+    del clones
+    q = block()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fused.contact_chain(q, *args, rows=(half, half))
+    host = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    plain = cuda_ms(lambda: fused.contact_chain_reference(
+        block(), *args, rows=(half, half)), 5)
+    launch_restore(counted)
+    bound = chain_bound(p, walls, plen, rows=(half, half))
+    out = {"label": label, "N": n, "rows": half, "K": p.nbr_idx.shape[0],
+           "W": len(walls), "ms": us * 1e-3, "host_us": host,
+           "plain_ms": plain, **bound}
+    say(f"sharded [kernel rows, {label}]: rows [{half}, {n}), K "
+        f"{out['K']}, W {out['W']} (f32): device {us:.2f} us ({how}, mean "
+        f"of {PROFILE_REPS}), bound {bound['bound_ms'] * 1e3:.2f} us by "
+        f"{bound['bound_by']} ({bound['touching_slots']} touching slots, "
+        f"{bound['wall_contacts']} wall contacts; "
+        f"{100 * bound['bound_ms'] * 1e3 / us:.1f}% of it); host "
+        f"{host:.2f} us per call (mean of {HOST_CALLS}); plain version "
+        f"{plain:.4f} ms (CUDA events, mean of 5) ({smi})")
+    return out
+
+
 def phase_sharded(dev, k, smi):
     """The coupled step split over ranks (sedifoam_tpu_torch/parallel/):
     (a) the kernel on row ranges of the bench table: the two halves equal
@@ -2664,8 +2911,16 @@ def phase_sharded(dev, k, smi):
     (1/ranks of the whole), the collective bytes by kind and the fields
     that are not bit for bit; (e) every stencil and solve of the slab
     path at the channel's shape on SHARDED_RANKS gloo ranks against the
-    whole grid's call (the operations that part, if any). Returns the
-    launches of the ranks (the main path of the split step)."""
+    whole grid's call (the operations that part, if any); (f) each of
+    SPLIT_CONFIGS (jetFlow with an add and a deletion in step 1, the
+    irregular clumps, the extras bed, the bed under a wiggled wall, the
+    DNS box, the lattice) on SHARDED_RANKS gloo ranks in one spawn,
+    SHARDED_STEPS steps against CoupledStep here: every field bit for bit
+    or within SHARDED_TOL of scale, the fields that part named; the
+    kernel's halves of each binned table equal its whole launch bit for
+    bit, and the own-row launches at OWN_ROW_KS are timed beside their
+    bounds, host time and plain version. Returns the launches of the
+    ranks (the main path of the split step)."""
     import numpy as np
     import torch
     from sedifoam_tpu_torch import bench_case, bridge, cases
@@ -2673,70 +2928,25 @@ def phase_sharded(dev, k, smi):
     from sedifoam_tpu_torch.dem.neighbor import permute_particle_state
     from sedifoam_tpu_torch.io.case import load_case
     from sedifoam_tpu_torch.parallel.launch import run_ranks
-    from sedifoam_tpu_torch.parallel.step import FIELDS, TABLES, run_steps
+    from sedifoam_tpu_torch.parallel.mesh import particle_axes
+    from sedifoam_tpu_torch.parallel.step import FIELDS, TABLES, run_jobs, \
+        run_steps
     from sedifoam_tpu_torch.solver import CoupledStep
 
     # (a) the kernel on each half of the bench table's rows
     cfg0, p = k["bench_case"]
     d = cfg0.dem
-    walls, plen = d.walls, d.periodic_len()
-    n = p.n_capacity
-    half = n // 2
     out = {"halves": {}}
     counted = launch_snapshot()
     for label, q in (("f32", p), ("f64", tree_map(
             lambda t: t.double() if t.is_floating_point() else t, p))):
-        args = (d.pair, d.dt)
-        whole = fused._launch(tree_map(torch.clone, q), *args, q.nbr_idx,
-                              True, plen, walls)
-        tol = 1e-5 if label == "f32" else 1e-12
-        errs = {}
-        for r0 in (0, half):
-            own = slice(r0, r0 + half)
-
-            def block():
-                return q._replace(shear=q.shear[..., own].clone(),
-                                  wall_shear=q.wall_shear[..., own].clone())
-            idx = q.nbr_idx[:, own].contiguous()
-            got = fused._launch(block(), *args, idx, True, plen, walls,
-                                rows=(r0, half))
-            ref = fused.contact_chain_reference(block(), *args, idx, True,
-                                                plen, walls, rows=(r0, half))
-            for name, w, g, rf in zip(
-                    ("force", "torque", "shear", "wall_shear"), whole, got,
-                    ref):
-                part = w[own] if name in ("force", "torque") else w[..., own]
-                if not torch.equal(part, g):
-                    fail(f"sharded: the kernel on rows [{r0}, {r0 + half}) "
-                         f"({label}) differs from the whole launch in {name}")
-                errs[name] = max(errs.get(name, 0.0), rel_err(rf, g))
-        say(f"sharded [kernel rows {label}]: the halves [0, {half}) and "
-            f"[{half}, {n}) equal the whole launch bit for bit in force, "
-            "torque, shear and wall shear; against the plain version on "
-            "the same rows: " + ", ".join(f"{x} {v:.3e}"
-                                          for x, v in errs.items())
-            + f" (tol {tol:.0e})")
-        if max(errs.values()) > tol:
-            fail(f"sharded: a half of the rows disagrees with the plain "
-                 f"version ({label}): {errs}")
-        out["halves"][label] = errs
-    torch.cuda.synchronize()
-    clones = [(p._replace(shear=p.shear[..., half:].clone(),
-                          wall_shear=p.wall_shear[..., half:].clone()))
-              for _ in range(PROFILE_REPS)]
-    idx = p.nbr_idx[:, half:].contiguous()
-    us, how, _ = device_us(lambda r: fused._launch(
-        clones[r], d.pair, d.dt, idx, True, plen, walls,
-        rows=(half, half)))
-    bound = chain_bound(p, walls, plen, rows=(half, half))
+        out["halves"][label] = chain_halves(
+            f"bench table {label}", q, d, 1e-5 if label == "f32" else 1e-12)
+    rows = own_rows_timing("bench table", p, d, smi)
+    out["rows_ms"] = rows["ms"]
+    out["rows_bound_ms"] = rows["bound_ms"]
+    out["own_rows"] = [rows]
     launch_restore(counted)
-    out["rows_ms"] = us * 1e-3
-    out["rows_bound_ms"] = bound["bound_ms"]
-    say(f"sharded [kernel rows]: rows [{half}, {n}) of the bench table "
-        f"(f32): device {us:.2f} us ({how}, mean of {PROFILE_REPS}), bound "
-        f"{bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']} "
-        f"({100 * bound['bound_ms'] * 1e3 / us:.1f}% of it; {smi})")
-    del clones
 
     # (b) and (c): the bench bed split over ranks against one process
     cfg = bench_case.build_config(**bench_case.FULL, sort_on_rebuild=True)
@@ -2775,11 +2985,17 @@ def phase_sharded(dev, k, smi):
         "every substep: " + ", ".join(f"{m:.1f}" for m in ref_ms_r)
         + f" ms ({smi})")
 
-    def held(label, res, refs, bitwise, cfg=cfg):
+    def held(label, res, refs, bitwise, cfg=cfg, expected=None,
+             particles_first=True):
         # each rank launches the kernel once a substep, on its own rows
-        # (CPU ranks run its plain version)
-        expected = len(refs) * cfg.cloud.sub_cycles * cfg.cloud.sub_steps \
-            if dev.type == "cuda" else 0
+        # (CPU ranks run its plain version), or as often as one process
+        # did (`expected`: an add's set-up forces, the lattice's none).
+        # particles_first: the particles bit for bit after step 1 where
+        # the fields may part; else every field within SHARDED_TOL
+        if expected is None:
+            expected = len(refs) * cfg.cloud.sub_cycles \
+                * cfg.cloud.sub_steps
+        expected = expected if dev.type == "cuda" else 0
         states = [bridge.sim_state_from_numpy(res[0]["states"][i],
                                               device="cpu")
                   for i in sorted(res[0]["states"])]
@@ -2801,7 +3017,7 @@ def phase_sharded(dev, k, smi):
                     fail(f"sharded [{label}]: step {i} differs from the "
                          f"one-process step in {differ}")
                 continue
-            if i == 1:
+            if i == 1 and particles_first:
                 moved = [f for f in differ if f.startswith("particles.")]
                 if moved:
                     fail(f"sharded [{label}]: after step 1 the particles "
@@ -2817,6 +3033,11 @@ def phase_sharded(dev, k, smi):
                      f"step: " + ", ".join(f"{f} {e:.3e}"
                                            for f, e in misses.items()))
         whole = {name: nbytes(getattr(refs[0].particles, name))
+                 for name in TABLES}
+        # the arrays each rank holds whole (the lattice's table and
+        # history): all of their bytes on every rank
+        split = particle_axes(refs[0].particles)
+        share = {name: len(res) if split[name] is not None else 1
                  for name in TABLES}
         whole_f = {name: nbytes(getattr(refs[0].fluid, name))
                    for name in FIELDS}
@@ -2836,10 +3057,10 @@ def phase_sharded(dev, k, smi):
                 fail(f"sharded [{label}]: rank {r['rank']} launched the "
                      f"kernel {r['launches']} times, not {expected}")
             for name in TABLES:
-                if r["tables"][name] * len(res) != whole[name]:
+                if r["tables"][name] * share[name] != whole[name]:
                     fail(f"sharded [{label}]: rank {r['rank']} holds "
                          f"{r['tables'][name]} B of {name}, not "
-                         f"1/{len(res)} of {whole[name]}")
+                         f"1/{share[name]} of {whole[name]}")
             for name in FIELDS:
                 if r["fields"][name] * len(res) != whole_f[name]:
                     fail(f"sharded [{label}]: rank {r['rank']} holds "
@@ -2930,7 +3151,61 @@ def phase_sharded(dev, k, smi):
         f"from the whole grid's call on the card: {json.dumps(parting)}; "
         f"solver iterations (whole, slabs): {json.dumps(its)}")
     out["slab_ops_parting"] = parting
-    paths = [out[key] for key in ("gloo", "nccl", "rebuilt", "channel")]
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) every other configuration CoupledStep steps, each split over
+    # SHARDED_RANKS gloo ranks sharing the card (one spawn runs them all)
+    jobs, split = [], []
+    for label, build in SPLIT_CONFIGS:
+        t0 = time.perf_counter()
+        scfg, sstate = build(dev)
+        t_build = time.perf_counter() - t0
+        ps = sstate.particles
+        launches0 = fused.launches()
+        srefs, sms = one_process(CoupledStep(scfg, torch.float32, dev),
+                                 SHARDED_STEPS, sstate)
+        ones = fused.launches() - launches0
+        if scfg.dem.backend == "binned" and scfg.dem.fused_chain:
+            # the kernel's own-row launches on the table after the steps
+            last = tree_map(lambda t: t.to(dev), srefs[-1].particles)
+            counted = launch_snapshot()
+            out["halves"][label] = chain_halves(label, last, scfg.dem, 1e-5)
+            if last.nbr_idx.shape[0] in OWN_ROW_KS:
+                out["own_rows"].append(own_rows_timing(label, last,
+                                                       scfg.dem, smi))
+            launch_restore(counted)
+            del last
+        jobs.append((scfg, bridge.sim_state_to_numpy(sstate), SHARDED_STEPS))
+        split.append((label, scfg, srefs, sms, ones))
+        say(f"sharded [{label}]: grid {scfg.grid.shape}, {ps.n_capacity} "
+            f"rows, {int(ps.active.sum())} active, K "
+            f"{ps.nbr_idx.shape[0] if scfg.dem.backend == 'binned' else '-'}"
+            f", {scfg.cloud.sub_steps} substeps, backend "
+            f"{scfg.dem.backend}; built in {t_build:.1f} s; one process, "
+            "CoupledStep eagerly: " + ", ".join(f"{m:.1f}" for m in sms)
+            + f" ms a step, {ones} kernel launches ({smi})")
+        del sstate, ps
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_ranks(run_jobs, SHARDED_RANKS, args=(jobs,), backend="gloo",
+                    device=dev, timeout=SHARDED_TIMEOUT)
+    say(f"sharded: {SHARDED_RANKS} gloo ranks sharing {dev} ran "
+        f"{len(jobs)} configurations {SHARDED_STEPS} steps each in "
+        f"{time.perf_counter() - t0:.1f} s of wall time, process start-up "
+        "included (two ranks on one card measure the path, not a "
+        "speed-up)")
+    out["configs"] = {}
+    for i, (label, scfg, srefs, sms, ones) in enumerate(split):
+        got = held(f"{label} gloo x{SHARDED_RANKS}", [r[i] for r in res],
+                   srefs, bitwise=False, cfg=scfg, expected=ones,
+                   particles_first=False)
+        got["ref_ms"] = sms
+        out["configs"][label] = got
+    paths = [out[key] for key in ("gloo", "nccl", "rebuilt", "channel")] \
+        + list(out["configs"].values())
     out["launches"] = sum(path["launches"] for path in paths)
     out["ran_at"] = [{"N": path["N"], "rows": rows, "K": path["K"],
                       "launches": c, "path": "sharded"}
@@ -3147,7 +3422,7 @@ def main():
         "rows_bound_ms": sharded["rows_bound_ms"],
         "sharded": {key: sharded[key] for key in (
             "gloo", "nccl", "rebuilt", "channel", "ref_ms",
-            "channel_ref_ms", "slab_ops_parting")},
+            "channel_ref_ms", "slab_ops_parting", "configs", "own_rows")},
         "shapes": k["shapes"],
         "graphs": GRAPHS, "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {

@@ -19,8 +19,10 @@ removed anyone stay on the device; an eager step reads them on the host
 (inject.SYNCS counts those reads).
 
 `shard` (parallel/mesh.Shard, None for the whole state): the particles
-are one rank's own block of rows of a step split over ranks; the DEM and
-the particle-to-grid scatters take it (dem/integrate.py, transfer.py).
+are one rank's own block of rows of a step split over ranks; the DEM,
+the injection and deletion and the particle-to-grid scatters take it
+(dem/integrate.py, dem/inject.py, transfer.py). The injection sites are
+the whole domain's (`grid.domain`), on every rank.
 The fluid is whole on every rank, or, where `grid` is a slab of it
 (grid.SlabGrid), split along grid-x: the transfers then exchange with
 the other slabs (transfer.py).
@@ -101,9 +103,10 @@ def evolve(fluid: FluidState, particles: ParticleState,
     inject_on = ccfg.add_particle > 0 or ccfg.delete_particle > 0
     if inject_on:
         from sedifoam_tpu_torch.dem import inject as _inject
-        sites = grid.const(
+        domain = grid.domain
+        sites = domain.const(
             ("inject_sites", tuple(ccfg.add_box), ccfg.reduce_number_factor),
-            lambda: _inject.seed_positions(grid, ccfg.add_box,
+            lambda: _inject.seed_positions(domain, ccfg.add_box,
                                            ccfg.reduce_number_factor),
             particles.pos.dtype, particles.pos.device)
 
@@ -112,14 +115,16 @@ def evolve(fluid: FluidState, particles: ParticleState,
         if inject_on:
             particles_, tta, key, added, deleted = _inject.maybe_add_delete(
                 particles, particles.time_to_add, particles.rng_key,
-                sites, grid, ccfg, fcfg.dt)
+                sites, grid, ccfg, fcfg.dt, shard)
             particles = particles_._replace(time_to_add=tta, rng_key=key)
 
             def setup(st):
                 # newly added particles need a fresh neighbor table and
                 # forces (their reused slots carry stale rows)
-                st = _dem.maybe_rebuild_neighbors(st, dcfg, force=True)
-                return _dem.compute_forces(st, dcfg, shearupdate=False)
+                st = _dem.maybe_rebuild_neighbors(st, dcfg, force=True,
+                                                  shard=shard)
+                return _dem.compute_forces(st, dcfg, shearupdate=False,
+                                           shard=shard)
 
             # the reference's cond(added, setup, cond(deleted, scrub)) as
             # two conds in a row: deletions alone need no rebuild, but
@@ -132,7 +137,8 @@ def evolve(fluid: FluidState, particles: ParticleState,
                 _inject.count_sync()
                 particles = graphs.cond(
                     deleted & ~added,
-                    lambda st: _dem.scrub_deactivated(st, dcfg), particles)
+                    lambda st: _dem.scrub_deactivated(st, dcfg, shard),
+                    particles)
 
         p_drag, p_dudt, particles = _forces.particle_forces(
             particles, uf_smoothed, uf_smoothed_old, grad_p, curl_u,

@@ -6,6 +6,10 @@ model 0 is the retarded 3-branch piecewise law (Hamaker constant `ah`,
 London wavelength `lam`, separation cutoffs smin/smax), model 1 the
 unretarded law. Attractive: ccel < 0 pulls particles together along the
 center line.
+
+Both passes take rows=(row0, n_rows) as the contact chain does: the
+forces of those rows of the state alone, against partners in all its
+rows (one rank's own rows in a step split over ranks, parallel/).
 """
 
 from __future__ import annotations
@@ -53,21 +57,23 @@ def cohesion_ccel(r, radsum, within, params: CohesionParams):
 
 
 def cohesion_forces(state: ParticleState, params: Optional[CohesionParams],
-                    periodic_len=None):
+                    periodic_len=None, rows=None):
     """Dense all-pairs cohesion."""
+    from sedifoam_tpu_torch.dem.pair import min_image, own
     if params is None or params.ah == 0.0:
-        return torch.zeros_like(state.vel)
-    from sedifoam_tpu_torch.dem.pair import min_image
+        return torch.zeros_like(own(state.vel, rows))
 
     x, rad = state.pos, state.radius
     n = state.n_capacity
-    delta = min_image(tuple(x[:, None, c] - x[None, :, c] for c in range(3)),
+    xi = own(x, rows)
+    delta = min_image(tuple(xi[:, None, c] - x[None, :, c] for c in range(3)),
                       periodic_len)
     rsq = delta[0] ** 2 + delta[1] ** 2 + delta[2] ** 2
-    radsum = rad[:, None] + rad[None, :]
+    radsum = own(rad, rows)[:, None] + rad[None, :]
 
-    valid = state.active[:, None] & state.active[None, :]
-    valid &= ~torch.eye(n, dtype=torch.bool, device=x.device)
+    valid = own(state.active, rows)[:, None] & state.active[None, :]
+    ii = torch.arange(n, device=x.device)
+    valid &= own(ii, rows)[:, None] != ii[None, :]
     cut = radsum + params.smax
     within = valid & (rsq < cut * cut)
 
@@ -80,20 +86,21 @@ def cohesion_forces(state: ParticleState, params: Optional[CohesionParams],
 
 def cohesion_forces_binned(state: ParticleState,
                            params: Optional[CohesionParams], idx,
-                           periodic_len=None):
+                           periodic_len=None, rows=None):
     """Cohesion over the (K, N) neighbor table (fix_cohesive.cpp has its
     own neighbor-list request, fix_cohesive.cpp:92-96; here the table is
     shared: the binner's cutoff must cover d_max + smax, enforced by the
-    case loader)."""
+    case loader). rows: as neighbor.gather_partners."""
+    from sedifoam_tpu_torch.dem.pair import own
     if params is None or params.ah == 0.0:
-        return torch.zeros_like(state.vel)
+        return torch.zeros_like(own(state.vel, rows))
     from sedifoam_tpu_torch.dem.neighbor import gather_partners
 
-    has, pg, delta, rsq = gather_partners(state, idx, periodic_len)
-    rad = state.radius
+    has, pg, delta, rsq = gather_partners(state, idx, periodic_len, rows)
+    rad = own(state.radius, rows)
     radsum = rad[None, :] + pg[..., 9]
     cut = radsum + params.smax
-    within = has & state.active[None, :] & (rsq < cut * cut)
+    within = has & own(state.active, rows)[None, :] & (rsq < cut * cut)
     r = torch.sqrt(torch.where(within, rsq, torch.ones_like(rsq)))
     ccel = cohesion_ccel(r, radsum, within, params)
     rinv = 1.0 / r

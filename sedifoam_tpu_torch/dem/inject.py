@@ -20,6 +20,14 @@ lax.cond (graphs.cond: a conditional node inside a captured step) and
 returns whether it fired and whether the delete box removed anyone as
 device tensors, for the caller's conds. `SYNCS` counts the decisions
 read on the host: those of eager calls.
+
+In a step split over ranks (`shard`, parallel/mesh.Shard) the countdown
+and the key are whole on every rank, so every rank takes the add branch
+alike; the add runs on the gathered whole state on every rank (the slot
+assignment and the tags read all rows) and each rank cuts its own block
+out again. The delete box is per row; whether it removed anyone is the
+largest over the ranks, so that every rank takes the caller's branch
+alike.
 """
 
 from __future__ import annotations
@@ -215,7 +223,8 @@ def count_sync():
 
 
 def maybe_add_delete(state: ParticleState, time_to_add, rng_key, sites,
-                     grid: Grid, ccfg: CloudConfig, dt_fluid: float):
+                     grid: Grid, ccfg: CloudConfig, dt_fluid: float,
+                     shard=None):
     """The addAndDeleteParticle step (softParticleCloud.C:1206-1268).
 
     When the countdown expires, the seed region is (optionally) cleared
@@ -225,7 +234,8 @@ def maybe_add_delete(state: ParticleState, time_to_add, rng_key, sites,
     (state, new_time_to_add, new_rng_key, added, deleted), `added` and
     `deleted` 0-d bool tensors on the device. After an add the caller
     rebuilds the neighbor table and recomputes forces; after a delete
-    alone it scrubs dead partners from the table.
+    alone it scrubs dead partners from the table. `shard`: the module
+    docstring.
     """
     dev = state.pos.device
     added = torch.zeros((), dtype=torch.bool, device=dev)
@@ -235,9 +245,12 @@ def maybe_add_delete(state: ParticleState, time_to_add, rng_key, sites,
         key_add, key_next = keys[0], keys[1]
 
         def do_add(st):
+            if shard is not None:
+                st = shard.gather(st)
             if ccfg.delete_before_add and len(ccfg.clear_box) == 6:
                 st = delete_in_box(st, ccfg.clear_box)
-            return add_particles(st, sites, ccfg, key_add)
+            st = add_particles(st, sites, ccfg, key_add)
+            return st if shard is None else shard.cut(st)
 
         due = time_to_add <= 0.0
         count_sync()
@@ -253,5 +266,8 @@ def maybe_add_delete(state: ParticleState, time_to_add, rng_key, sites,
         was_active = state.active
         state = delete_in_box(state, ccfg.delete_box)
         deleted = torch.any(was_active != state.active)
+        if shard is not None:
+            deleted = shard.comm.all_reduce_max(deleted.to(torch.int32)) > 0
+            shard.set_active(state.active)
 
     return state, time_to_add, rng_key, added, deleted

@@ -22,9 +22,15 @@ Every function that steps takes `shard`: None for the whole state, or
 one rank's part in a step split over ranks (parallel/mesh.Shard; the
 state is then the rank's own block of rows). The forces are the own
 rows' against partners in all rows (pos, vel and omega gathered before
-each force evaluation), the rebuild test's largest displacement is the
-largest over the ranks, and a rebuild runs on the gathered state on
-every rank alike, then cuts the own block out again.
+each force evaluation): the contact chain, cohesion and lubrication
+alike; the walls are per row. The rebuild test's largest displacement
+is the largest over the ranks, and a rebuild runs on the gathered state
+on every rank alike, then cuts the own block out again. The lattice's
+slot table and history are whole on every rank (parallel/mesh.py): its
+force pass and rebuild run on the gathered rows, alike on every rank,
+and each rank keeps its own rows' force and torque. The rigid bodies are
+whole on every rank: their sums take the members' rows of all ranks in
+row order (dem/rigid.py).
 """
 
 from __future__ import annotations
@@ -89,7 +95,8 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
     Lattice: new slots (lattice.bin_slots) and the shear carried onto
     them (lattice.carry_shear_lattice). No sort (sort_on_rebuild is the
     binned table's) and no nbr_dropped: a bin's overflow is reported by
-    the diagnostics' lattice_unslotted.
+    the diagnostics' lattice_unslotted. With a shard, from the gathered
+    positions, alike on every rank.
 
     With a shard (binned): the whole state is gathered, rebuilt (sorted,
     binned, its shear carried over) as above on every rank alike, and
@@ -102,16 +109,19 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
         geom = _lat.make_geom(cfg)
 
         def do_rebuild_lat(st: ParticleState) -> ParticleState:
-            new_slot, _overflow = _lat.bin_slots(geom, st.pos, st.active)
+            pos, active = (st.pos, st.active) if shard is None else \
+                (shard.comm.all_gather_rows(st.pos), shard.active)
+            new_slot, _overflow = _lat.bin_slots(geom, pos, active)
             shear = _lat.carry_shear_lattice(
-                st.nbr_idx, new_slot, st.shear, geom, st.n_capacity,
+                st.nbr_idx, new_slot, st.shear, geom, pos.shape[0],
                 k_compact=max(16, cfg.nbr_k))
             return st._replace(nbr_idx=new_slot, shear=shear,
                                pos_at_build=st.pos)
 
         if force:
             return do_rebuild_lat(state)
-        return graphs.cond(_need_rebuild(state, cfg), do_rebuild_lat, state)
+        return graphs.cond(_need_rebuild(state, cfg, shard), do_rebuild_lat,
+                           state)
 
     if cfg.backend != "binned":
         return state
@@ -169,9 +179,10 @@ def compute_forces(state: ParticleState, cfg: DEMConfig,
     of lattice.lattice_pair_forces, the walls always through
     walls.wall_forces (the reference fuses no wall on this backend);
     cohesion and lubrication are not wired there and raise.
-    With a shard, the contact chain (or the dense pairs) takes the own
-    rows against the gathered rows of all (shard.view, rows=shard.rows);
-    the rest is per row.
+    With a shard, the contact chain (or the dense pairs), cohesion and
+    lubrication take the own rows against the gathered rows of all
+    (shard.view, rows=shard.rows); the lattice runs on the gathered rows
+    and keeps the own rows; the rest is per row.
     """
     dt = cfg.dt
     plen = cfg.periodic_len()
@@ -189,8 +200,10 @@ def compute_forces(state: ParticleState, cfg: DEMConfig,
                 "cohesion/lubrication are not wired for the lattice "
                 "backend; use backend='binned'")
         f_pair, tq_pair, shear = _lat.lattice_pair_forces(
-            state, cfg, _lat.make_geom(cfg), state.nbr_idx, state.shear,
+            contacts, cfg, _lat.make_geom(cfg), state.nbr_idx, state.shear,
             shearupdate)
+        if shard is not None:
+            f_pair, tq_pair = shard.own(f_pair), shard.own(tq_pair)
     elif cfg.fused_chain:
         from sedifoam_tpu_torch.dem.fused import contact_chain, walls_fusible
         fuse_walls = cfg.walls if walls_fusible(cfg.walls) else ()
@@ -225,10 +238,12 @@ def compute_forces(state: ParticleState, cfg: DEMConfig,
     v_old = state.vel
 
     if cfg.backend == "binned":
-        f_cohe = cohesion_forces_binned(state, cfg.cohesion, state.nbr_idx,
-                                        periodic_len=plen)
+        f_cohe = cohesion_forces_binned(contacts, cfg.cohesion,
+                                        state.nbr_idx, periodic_len=plen,
+                                        rows=rows)
     else:
-        f_cohe = cohesion_forces(state, cfg.cohesion, periodic_len=plen)
+        f_cohe = cohesion_forces(contacts, cfg.cohesion, periodic_len=plen,
+                                 rows=rows)
 
     force = f_pair + f_wall + f_grav + f_drag + f_cohe
     torque = tq_pair + tq_wall
@@ -245,11 +260,12 @@ def compute_forces(state: ParticleState, cfg: DEMConfig,
                                              cfg.walls, step_time)
         if cfg.backend == "binned":
             f_lub, tq_lub = _lub.lubrication_forces_binned(
-                state, cfg.lubrication, state.nbr_idx, periodic_len=plen,
-                vol_T=vol_T)
+                contacts, cfg.lubrication, state.nbr_idx, periodic_len=plen,
+                vol_T=vol_T, rows=rows)
         else:
             f_lub, tq_lub = _lub.lubrication_forces(
-                state, cfg.lubrication, periodic_len=plen, vol_T=vol_T)
+                contacts, cfg.lubrication, periodic_len=plen, vol_T=vol_T,
+                rows=rows)
         force = force + f_lub
         torque = torque + tq_lub
 
@@ -315,7 +331,7 @@ def _substep(state: ParticleState, cfg: DEMConfig, step_time, shard=None):
     if state.rigid is not None:
         from sedifoam_tpu_torch.dem import rigid as _rig
         state = _rig.initial_integrate(state, cfg.dt, cfg.domain_lo,
-                                       cfg.domain_hi, cfg.periodic)
+                                       cfg.domain_hi, cfg.periodic, shard)
 
     # neighbor maintenance + forces at the new positions
     state = maybe_rebuild_neighbors(state, cfg, shard=shard)
@@ -334,7 +350,7 @@ def _substep(state: ParticleState, cfg: DEMConfig, step_time, shard=None):
     state = state._replace(vel=vel, omega=omega)
     if state.rigid is not None:
         from sedifoam_tpu_torch.dem import rigid as _rig
-        state = _rig.final_integrate(state, cfg.dt)
+        state = _rig.final_integrate(state, cfg.dt, shard)
     return state
 
 

@@ -17,6 +17,9 @@ Box shearing (fix deform coupling) is not supported — the reference's
 cohesive-suspension configs don't use it with sediFoam.
 
 Dense ordered-pair evaluation with component-tuple layout (see pair.py).
+Both passes take rows=(row0, n_rows) as the contact chain does: the
+forces of those rows alone against partners in all rows; the volume
+fraction sums the volume of all rows.
 """
 
 from __future__ import annotations
@@ -133,22 +136,25 @@ class LubricationParams:
 
 
 def lubrication_forces(state: ParticleState, p: LubricationParams,
-                       periodic_len=None, vol_T=None
+                       periodic_len=None, vol_T=None, rows=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (force (N,3), torque (N,3)). vol_T overrides p.box_volume
-    (wall-bounded volume, see wall_bounded_volume)."""
+    (wall-bounded volume, see wall_bounded_volume). rows: the module
+    docstring (force and torque (n_rows, 3))."""
+    from sedifoam_tpu_torch.dem.pair import min_image, own
     mu = p.mu
-    x, v, w = state.pos, state.vel, state.omega
-    rad = state.radius
     n = state.n_capacity
-    active = state.active
+    x, v, w = own(state.pos, rows), own(state.vel, rows), \
+        own(state.omega, rows)
+    rad = own(state.radius, rows)
+    active = own(state.active, rows)
 
     force = torch.zeros_like(v)
     torque = torch.zeros_like(v)
 
     # ---- isotropic FLD terms (with volume-fraction correction) --------
     if p.flagfld:
-        vol_p = torch.sum(state.volume * active)
+        vol_p = torch.sum(state.volume * state.active)
         vol = p.box_volume if vol_T is None else vol_T
         vf = vol_p / vol if p.flag_vf else 0.0
         if p.flaglog:
@@ -164,32 +170,33 @@ def lubrication_forces(state: ParticleState, p: LubricationParams,
         return force, torque
 
     # ---- pairwise squeeze/shear/pump -----------------------------------
-    from sedifoam_tpu_torch.dem.pair import min_image
-    delta = min_image(tuple(x[:, None, c] - x[None, :, c] for c in range(3)),
-                      periodic_len)
+    xa, va, wa = state.pos, state.vel, state.omega    # the partners: all
+    delta = min_image(tuple(x[:, None, c] - xa[None, :, c]
+                            for c in range(3)), periodic_len)
     rsq = delta[0] ** 2 + delta[1] ** 2 + delta[2] ** 2
-    within = active[:, None] & active[None, :] & \
-        ~torch.eye(n, dtype=torch.bool, device=x.device)
+    ii = torch.arange(n, device=x.device)
+    within = active[:, None] & state.active[None, :] & \
+        (own(ii, rows)[:, None] != ii[None, :])
     within &= rsq < p.cut ** 2
     r = torch.sqrt(torch.where(within, rsq, torch.ones_like(rsq)))
 
     radi = rad[:, None]
-    radj = rad[None, :]
+    radj = state.radius[None, :]
 
     # closest-approach points (from centers, along -delta for i)
     xl = tuple(-delta[c] / r * radi for c in range(3))
     jl = tuple(-delta[c] / r * radj for c in range(3))
 
     wi = tuple(w[:, None, c] + torch.zeros_like(r) for c in range(3))
-    wj = tuple(w[None, :, c] + torch.zeros_like(r) for c in range(3))
+    wj = tuple(wa[None, :, c] + torch.zeros_like(r) for c in range(3))
 
     # surface velocities at closest approach (no background shear field)
     vi = (v[:, None, 0] + (wi[1] * xl[2] - wi[2] * xl[1]),
           v[:, None, 1] + (wi[2] * xl[0] - wi[0] * xl[2]),
           v[:, None, 2] + (wi[0] * xl[1] - wi[1] * xl[0]))
-    vj = (v[None, :, 0] - (wj[1] * jl[2] - wj[2] * jl[1]),
-          v[None, :, 1] - (wj[2] * jl[0] - wj[0] * jl[2]),
-          v[None, :, 2] - (wj[0] * jl[1] - wj[1] * jl[0]))
+    vj = (va[None, :, 0] - (wj[1] * jl[2] - wj[2] * jl[1]),
+          va[None, :, 1] - (wj[2] * jl[0] - wj[0] * jl[2]),
+          va[None, :, 2] - (wj[0] * jl[1] - wj[1] * jl[0]))
 
     fpair, tq, wt = _pairwise_lub(p, mu, delta, r, within, radi, radj,
                                   vi, vj, wi, wj, xl)
@@ -203,21 +210,23 @@ def lubrication_forces(state: ParticleState, p: LubricationParams,
 
 
 def lubrication_forces_binned(state: ParticleState, p: LubricationParams,
-                              idx, periodic_len=None, vol_T=None
+                              idx, periodic_len=None, vol_T=None, rows=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """pair lubricate/poly over the (K, N) neighbor table (binner cutoff
-    and K must cover p.cut's ring; enforced by the case loader)."""
+    and K must cover p.cut's ring; enforced by the case loader). rows:
+    as neighbor.gather_partners."""
     from sedifoam_tpu_torch.dem.neighbor import gather_partners
+    from sedifoam_tpu_torch.dem.pair import own
 
     mu = p.mu
-    v, w, rad = state.vel, state.omega, state.radius
-    active = state.active
+    v, w = own(state.vel, rows), own(state.omega, rows)
+    rad, active = own(state.radius, rows), own(state.active, rows)
 
     force = torch.zeros_like(v)
     torque = torch.zeros_like(v)
 
     if p.flagfld:
-        vol_p = torch.sum(state.volume * active)
+        vol_p = torch.sum(state.volume * state.active)
         vol = p.box_volume if vol_T is None else vol_T
         vf = vol_p / vol if p.flag_vf else 0.0
         if p.flaglog:
@@ -232,7 +241,7 @@ def lubrication_forces_binned(state: ParticleState, p: LubricationParams,
     if not p.flag_hi:
         return force, torque
 
-    has, pg, delta, rsq = gather_partners(state, idx, periodic_len)
+    has, pg, delta, rsq = gather_partners(state, idx, periodic_len, rows)
     within = has & active[None, :] & (rsq < p.cut ** 2)
     r = torch.sqrt(torch.where(within, rsq, torch.ones_like(rsq)))
 

@@ -41,6 +41,13 @@ in a fixed order on CUDA (indices sorted first). `index_add_` adds with
 float atomics in a varying order there; the sums feed member positions,
 so with it a run and its resume from a checkpoint would not repeat (as
 coupling/transfer.py found for the particle-to-grid sums).
+
+In a step split over ranks (`shard`, parallel/mesh.Shard) the bodies are
+whole on every rank and each rank holds a block of the member rows: the
+body sums gather the members' force and torque rows of all ranks in row
+order and add them with the same sorted scatter on every rank, so the
+bodies stay the same on every rank, and one process's, bit for bit; each
+rank then places its own members.
 """
 
 from __future__ import annotations
@@ -247,32 +254,42 @@ def _wrap(x, domain_lo, domain_hi, periodic):
     return torch.stack(cols, dim=-1)
 
 
-def _accumulate(ps) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _segments(mol, B):
+    """The body row each particle adds into: a free sphere into a row of
+    its own past the bodies, which is dropped (one shared drop row would
+    make every free sphere a duplicate of one index, and the fixed-order
+    scatter adds duplicates one after the other)."""
+    n = mol.shape[0]
+    mol = mol.long()
+    return torch.where(mol > 0, mol - 1,
+                       B + torch.arange(n, device=mol.device))
+
+
+def _accumulate(ps, shard=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sum member forces/torques into body frame counts.
 
     Returns (fcm (B,3), tcm (B,3), rw (N,3) member world offsets). The
     member offset comes from the quaternion + body-frame displace, never
-    from wrapped positions, so periodic images do not matter.
+    from wrapped positions, so periodic images do not matter. With a
+    shard, rw of the own rows and the sums over the rows of all ranks
+    (the module docstring).
     """
     rb = ps.rigid
     B = rb.n_capacity
-    n = ps.mol.shape[0]
     member = ps.mol > 0
-    mol = ps.mol.long()
-    # a free sphere adds into a row of its own past the bodies, which is
-    # dropped: one shared drop row would make every free sphere a
-    # duplicate of one index, and the fixed-order scatter adds
-    # duplicates one after the other
-    seg = torch.where(member, mol - 1,
-                      B + torch.arange(n, device=mol.device))
+    seg = _segments(ps.mol, B)
     rw = quat_rotate(rb.quat[seg.clamp(0, B - 1)], ps.displace)
     rw = torch.where(member[:, None], rw, torch.zeros_like(rw))
     tq = _cross(rw, ps.force) + ps.torque
+    rows = torch.cat([ps.force, tq], dim=1)
+    if shard is not None:
+        rows = shard.comm.all_gather_rows(rows)
+        seg = _segments(shard.full["mol"], B)
     # both sums in one fixed-order scatter (module docstring)
-    sums = torch.zeros((B + n, 6), dtype=ps.force.dtype,
+    sums = torch.zeros((B + rows.shape[0], 6), dtype=ps.force.dtype,
                        device=ps.force.device)
-    sums.index_put_((seg,), torch.cat([ps.force, tq], dim=1),
-                    accumulate=True)
+    sums.index_put_((seg,), rows, accumulate=True)
     return sums[:B, :3], sums[:B, 3:], rw
 
 
@@ -295,11 +312,11 @@ def _set_members(ps, rw, domain_lo=None, domain_hi=None, periodic=None):
     )
 
 
-def initial_integrate(ps, dt, domain_lo, domain_hi, periodic):
+def initial_integrate(ps, dt, domain_lo, domain_hi, periodic, shard=None):
     """Body half-kick + drift + member placement (before forces)."""
     rb = ps.rigid
     dtf = 0.5 * dt
-    fcm, tcm, _ = _accumulate(ps)
+    fcm, tcm, _ = _accumulate(ps, shard)
     minv = torch.where(rb.valid, 1.0 / rb.mass,
                        torch.zeros_like(rb.mass))[:, None]
     vcm = rb.vcm + dtf * fcm * minv
@@ -319,11 +336,11 @@ def initial_integrate(ps, dt, domain_lo, domain_hi, periodic):
     return _set_members(ps, rw, domain_lo, domain_hi, periodic)
 
 
-def final_integrate(ps, dt):
+def final_integrate(ps, dt, shard=None):
     """Body half-kick from the new forces + member velocity update."""
     rb = ps.rigid
     dtf = 0.5 * dt
-    fcm, tcm, rw = _accumulate(ps)
+    fcm, tcm, rw = _accumulate(ps, shard)
     minv = torch.where(rb.valid, 1.0 / rb.mass,
                        torch.zeros_like(rb.mass))[:, None]
     rb = rb._replace(vcm=rb.vcm + dtf * fcm * minv,

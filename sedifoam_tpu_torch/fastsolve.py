@@ -14,13 +14,16 @@ are matmuls on tensors, which must run in full precision on the card
 (TF32 off: its ~1e-3 relative error breaks the smoothing's maximum
 principle).
 
-On a slab of a fluid split along grid-x (grid.SlabGrid) the operator is
-the whole grid's: the x transform runs on all planes of a block of the
-flattened (y, z) columns, after an all-to-all from the x-split to that
-column split, and the data goes back before the y and z transforms, so
-the axis order x, y, z and every column's arithmetic stay the whole
-grid's (four all-to-alls a solve); the eigenvalue sum is cut to the
-slab.
+On a slab of a fluid split along grid-x (grid.SlabGrid) every rank
+gathers the right-hand side, solves on the whole grid and keeps its
+slab: one all-gather a solve. A transform split over the ranks (an
+all-to-all to column blocks for x, the slab's planes for y and z) runs
+its matmuls on fewer columns than one process, and cuBLAS may then pick
+another kernel, which rounds otherwise: on the H100 the y transform of
+a vector field on 32 x 16 x 32 cells parts from the whole grid's at 2
+ranks, and x, y and z each part somewhere among a dozen grid shapes.
+The whole solve is the one process's, bit for bit, on every shape; its
+matmuls cost little beside the step.
 """
 
 from __future__ import annotations
@@ -124,17 +127,14 @@ class FastDiag(nn.Module):
                  device=None):
         super().__init__()
         self.slab = grid if isinstance(grid, SlabGrid) else None
-        whole = grid.whole if self.slab is not None else grid
         fwds, bwds, lam3 = _fastdiag_arrays(
-            whole, tuple(float(d) for d in d_coefs), tuple(kinds))
+            grid.domain, tuple(float(d) for d in d_coefs), tuple(kinds))
         for a in range(3):
             self.register_buffer(f"fwd{a}", torch.as_tensor(
                 fwds[a], dtype=dtype, device=device))
             self.register_buffer(f"bwd{a}", torch.as_tensor(
                 bwds[a], dtype=dtype, device=device))
-        cut = lam3 if self.slab is None else \
-            lam3[grid.x_start:grid.x_start + grid.nx]
-        self.register_buffer("lam3", torch.as_tensor(cut, dtype=dtype,
+        self.register_buffer("lam3", torch.as_tensor(lam3, dtype=dtype,
                                                      device=device))
         # singular (all-Neumann) operators have one ~0 eigenvalue at c0=0;
         # flag it so callers can project it out
@@ -151,13 +151,6 @@ class FastDiag(nn.Module):
     def _transform(self, mats, b):
         off = b.ndim - 3
         for a in range(3):
-            if a == 0 and self.slab is not None:
-                comm = self.slab.comm
-                c = comm.to_columns(b)
-                c = torch.movedim(torch.tensordot(mats[0], c,
-                                                  dims=([1], [off])), 0, off)
-                b = comm.from_columns(c, b.shape)
-                continue
             b = torch.movedim(
                 torch.tensordot(mats[a], b, dims=([1], [off + a])),
                 0, off + a)
@@ -169,18 +162,30 @@ class FastDiag(nn.Module):
     def _from_eig(self, y):
         return self._transform(self.bwd, y)
 
+    def _whole(self, solve, b):
+        """solve(b) on the whole grid: on a slab, b gathered from the
+        ranks and the slab's planes of the result kept (the module
+        docstring)."""
+        if self.slab is None:
+            return solve(b)
+        return self.slab.cut(solve(self.slab.join(b)))
+
     def solve_pow(self, b, c0, k: int):
         """x = [(c0*I - sum D_a L_a)^-1 c0]^k b — k implicit-Euler steps
         collapsed into one transform pair: in the eigenbasis each step
         multiplies by c0/(c0 - lam), so k steps multiply by that ratio
         to the k-th power."""
-        bh = self._to_eig(b)
-        ratio = c0 / (c0 - self.lam3)
-        bh = bh * ratio ** k
-        return self._from_eig(bh)
+        def solve(b):
+            bh = self._to_eig(b)
+            ratio = c0 / (c0 - self.lam3)
+            return self._from_eig(bh * ratio ** k)
+        return self._whole(solve, b)
 
     def solve(self, b, c0, project_null: bool = False):
         """x with (c0*I - sum D_a L_a) x = b; leading batch dims allowed."""
+        return self._whole(lambda b: self._solve(b, c0, project_null), b)
+
+    def _solve(self, b, c0, project_null):
         bh = self._to_eig(b)
         denom = c0 - self.lam3
         if project_null:

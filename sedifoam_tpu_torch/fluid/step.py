@@ -1,5 +1,11 @@
 """One fluid timestep — the fluid half of the coupled loop
-(lammpsFoam.C:74-107); port of ``sedifoam_tpu/fluid/step.py``."""
+(lammpsFoam.C:74-107); port of ``sedifoam_tpu/fluid/step.py``.
+
+On a slab of a fluid split along grid-x (grid.SlabGrid) the DNS forcing
+needs every kx plane of its spectral state for the inverse transform:
+each rank gathers the planes, advances the whole state from the same
+key and takes the whole transform, alike on every rank, then keeps its
+slab's planes of the state and of the force."""
 
 from __future__ import annotations
 
@@ -40,12 +46,12 @@ def fluid_step(fs: FluidState, grid: Grid, bcs: FluidBCs, cfg: FluidConfig,
 
     if cfg.add_dns_force:
         from sedifoam_tpu_torch.fluid import bodyforce as _bf
-        uo = _bf.UOForcingState(fs.dns_f_hat, fs.dns_key)
+        uo = _bf.UOForcingState(grid.join(fs.dns_f_hat), fs.dns_key)
         uo, force = _bf.uo_forcing_step(
-            uo, grid, cfg.dt, cfg.dns_alpha, cfg.dns_sigma,
+            uo, grid.domain, cfg.dt, cfg.dns_alpha, cfg.dns_sigma,
             cfg.dns_k_upper, cfg.dns_k_lower)
-        fs = fs._replace(dns_f_hat=uo.f_hat, dns_key=uo.key,
-                         turbulence_force=force)
+        fs = fs._replace(dns_f_hat=grid.cut(uo.f_hat), dns_key=uo.key,
+                         turbulence_force=grid.cut(force))
 
     # alphaEqn.H: alpha is imposed from the particle averaging; only
     # beta = 1 - alpha is refreshed (derived property here).

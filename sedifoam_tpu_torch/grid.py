@@ -349,6 +349,12 @@ class Grid:
         a field; a flat axis of its cells works alike)."""
         return x
 
+    def cut(self, x):
+        """This grid's planes of grid-x (the third from last axis) of a
+        field of the whole domain: x itself here; a slab's planes (a
+        contiguous copy)."""
+        return x
+
     @property
     def domain(self) -> "Grid":
         """The whole domain's Grid (this one; a slab's whole)."""
@@ -472,6 +478,9 @@ class SlabGrid(Grid):
             return x
         return self.comm.all_gather_rows(
             x, axis=x.ndim - 3 if axis is None else axis)
+
+    def cut(self, x):
+        return x.narrow(x.ndim - 3, self.x_start, self.nx).contiguous()
 
     @property
     def domain(self) -> Grid:

@@ -25,8 +25,10 @@ contact and wall histories along N), where the DEM's state and time go;
 the contact-chain kernel runs on each rank's own rows. The fluid grid
 splits along grid-x where nx divides by the ranks (``grid.SlabGrid``:
 ghost planes in the stencils, plane-ordered reductions summed over the
-ranks, all-to-all transposes in the FastDiag x transform), else it is
-whole on every rank, stepped by every rank alike. The capture of the
-split step as one CUDA graph and the combinations ``ShardedStep``
-raises on are queued in ROADMAP.md.
+ranks, FastDiag solves on the gathered whole field), else it is
+whole on every rank, stepped by every rank alike. What has no axis of
+N stays whole on every rank, computed alike by each: the rigid bodies,
+the lattice's slot table and history. ``ShardedStep`` steps every
+configuration ``solver.CoupledStep`` steps; the capture of the split
+step as one CUDA graph is queued in ROADMAP.md.
 """

@@ -12,11 +12,10 @@ The fluid's, where it is split along grid-x (grid.SlabGrid): the ghost
 planes of the stencils (`halo`, each slab's end planes to its two
 neighbours, wrapping cyclically), the per-plane partial sums of every
 global reduction (`gather_planes`: each rank then sums all planes in x
-order alike), the transposes of the FastDiag x transform between the
-x-split and a split of the flattened (y, z) columns (`to_columns`,
-`from_columns`), the value of one cell from its owner
-(`broadcast_cell`), and the particle rows' contributions to the cells
-of another rank's slab (`route_rows`).
+order alike), the whole field from the slabs (`all_gather_rows`: the
+FastDiag solves and the grid-to-particle gathers read it), the value of
+one cell from its owner (`broadcast_cell`), and the particle rows'
+contributions to the cells of another rank's slab (`route_rows`).
 
 `Comm.bytes` counts, by kind, the bytes of the tensors each call
 returns on this rank: the convention of the JAX package's dry run
@@ -154,40 +153,6 @@ class Comm:
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src)
         return out.tolist()
-
-    def column_sizes(self, columns: int):
-        """The split of `columns` over the ranks: the first columns %
-        ranks ranks take one more."""
-        q, r = divmod(columns, self.ranks)
-        return [q + (1 if i < r else 0) for i in range(self.ranks)]
-
-    def to_columns(self, b):
-        """b (..., n, ny, nz), this rank's planes of grid-x, as (..., nx,
-        c): all planes of this rank's block of the flattened (y, z)
-        columns (column_sizes; uneven where ny * nz does not divide)."""
-        lead = b.shape[:-3]
-        flat = b.reshape(lead + (b.shape[-3], -1))
-        cols = self.column_sizes(flat.shape[-1])
-        blocks = torch.split(flat, cols, dim=-1)
-        mine = cols[self.rank]
-        each = flat[..., 0].numel() * mine
-        got = self._all_to_all([blk.contiguous() for blk in blocks],
-                               [each] * self.ranks)
-        return torch.cat([g.reshape(lead + (-1, mine)) for g in got],
-                         dim=-2)
-
-    def from_columns(self, c, shape):
-        """The inverse of to_columns: c (..., nx, c_r) back to this rank's
-        planes, of `shape` (..., n, ny, nz)."""
-        n = shape[-3]
-        blocks = torch.split(c, n, dim=-2)
-        lead = tuple(shape[:-3])
-        cols = self.column_sizes(shape[-2] * shape[-1])
-        each = c[..., 0].numel() // self.ranks
-        got = self._all_to_all([blk.contiguous() for blk in blocks],
-                               [each * k for k in cols])
-        return torch.cat([g.reshape(lead + (n, k)) for g, k in
-                          zip(got, cols)], dim=-1).reshape(shape)
 
     def route_rows(self, dest, *rows):
         """Each row of the tensors `rows` (N, ...) sent to rank dest[row]:

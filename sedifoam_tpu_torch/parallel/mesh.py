@@ -22,14 +22,22 @@ exchanges what its other rows are needed for.
   fluid is replicated (`fluid_layout` says which);
 - everything else is replicated.
 
+Two kinds of particle array stay whole by their path, whatever their
+shape (`particle_axes`): the rigid bodies (`particles.rigid.*`, B
+bodies: a body array is replicated even where B happens to equal N,
+which ``spec_for`` would split), and the lattice's (M, S) slot table and
+(3, NOFF, M, M, S) history, which hold no axis of N, so ``spec_for``
+replicates them and GSPMD computes the lattice on every device; the
+split step does the same.
+
 With ``DEMConfig.sort_on_rebuild`` the rows are sorted by bin at every
 neighbor rebuild, so a rank's block of rows is an x-slab of the bed, and
 a particle that crossed into another rank's slab changes ranks at the
 next rebuild: the stand-in for MPI's particle migration.
 
 Where N does not divide by the ranks the JAX module quietly replicates
-the particle arrays; `placement` raises instead, since a replicated
-split would hide that nothing is split.
+the particle arrays; `placement` and `shard_state` raise instead, since
+a replicated split would hide that nothing is split.
 """
 
 from __future__ import annotations
@@ -116,19 +124,30 @@ def _owned(path):
 # the tensors of a ParticleState that hold no capacity axis, and those
 # whose capacity axis is the last: the (K, N) table, the (3, K, N) and
 # (3, W, N) histories (the dense backend's (3, N, N) history splits along
-# -2, its rows); every other tensor's capacity axis is its first
+# -2, its rows); every other tensor's capacity axis is its first. The
+# lattice's table and history hold no capacity axis (the module
+# docstring), nor do the rigid bodies (no tensor: a RigidBodies)
 _WHOLE = ("time_to_add", "rng_key", "nbr_dropped")
 _MINOR = ("nbr_idx", "shear", "wall_shear")
+_LATTICE = ("nbr_idx", "shear")
+
+
+def is_lattice(ps) -> bool:
+    """Whether a ParticleState holds the lattice's (3, NOFF, M, M, S)
+    history."""
+    return ps.shear.ndim == 5
 
 
 def particle_axes(ps) -> dict:
     """{field: the axis its rows split along, or None} of a ParticleState,
     whole or a rank's block alike: the layout the split step cuts and
-    joins by (shard_state checks it against `placement`)."""
+    joins by."""
     dense = ps.nbr_idx.shape[0] == 0
+    lattice = is_lattice(ps)
     out = {}
     for name, x in zip(ps._fields, ps):
-        if name in _WHOLE or not isinstance(x, torch.Tensor):
+        if name in _WHOLE or not isinstance(x, torch.Tensor) \
+                or (lattice and name in _LATTICE):
             out[name] = None
         elif name == "shear" and dense:
             out[name] = 1
@@ -160,33 +179,14 @@ def join_particles(ps, comm):
                           for k, a in axes.items() if a is not None})
 
 
-def _check_layout(state, n, ranks, nx=None):
-    """Raise unless `placement` splits exactly what particle_axes splits
-    among the particles, and outside them grid-x of the grid fields of
-    nx planes, or nothing (no nx: a ParticleState)."""
-    ps = state.particles if hasattr(state, "particles") else state
-    if ps.rigid is not None:
-        raise NotImplementedError("shard_state: rigid clumps are not split "
-                                  "over ranks yet")
-    axes = particle_axes(ps)
-
-    def check(path, x):
-        place = placement(x, n, ranks, nx)
-        name = path.split(".")[-1]
-        owned = _owned(path) or ps is state
-        if owned:
-            want = ("split", axes[name]) if axes[name] is not None \
-                else REPLICATE
-        else:
-            grid_field = nx is not None and x.ndim >= 3 \
-                and x.shape[-3] == nx and nx % ranks == 0
-            want = ("split", x.ndim - 3) if grid_field else REPLICATE
-        if place != want:
-            raise ValueError(f"shard_state: {path} of shape "
-                             f"{tuple(x.shape)} places as {place}, the "
-                             f"split step cuts it as {want}")
-        return x
-    _map(check, state)
+def grid_axis(x, nx, ranks):
+    """The axis a fluid tensor splits along (grid-x of a field of nx
+    planes where nx divides by the ranks), or None: the fields on x
+    faces (nx + 1 planes) and everything else stay whole."""
+    if nx is not None and x.ndim >= 3 and x.shape[-3] == nx \
+            and nx % ranks == 0:
+        return x.ndim - 3
+    return None
 
 
 def _map(fn, tree, path=""):
@@ -215,22 +215,25 @@ def _grid_nx(state):
 def shard_state(state, mesh: Mesh):
     """This rank's SimState (or ParticleState) on mesh.device: each split
     tensor cut to the rank's contiguous block (a copy, not a view): the
-    particle rows, and the grid-x planes of the grid fields where the
-    fluid splits (fluid_layout); every other tensor as it is. Raises
-    where the capacity does not divide by the ranks, and where
-    `placement` would place a tensor otherwise than the split step cuts
-    it (a grid dimension equal to the capacity, a lattice state)."""
+    particle rows (particle_axes), and the grid-x planes of the grid
+    fields where the fluid splits (grid_axis); every other tensor as it
+    is. The layout is the split step's, by path: where a grid axis or a
+    body count happens to equal the capacity, `placement` (the JAX
+    rule) would place an array otherwise. Raises where the capacity
+    does not divide by the ranks."""
     ps = state.particles if hasattr(state, "particles") else state
+    if ps.n_capacity % mesh.ranks:
+        raise ValueError(f"capacity {ps.n_capacity} does not divide over "
+                         f"{mesh.ranks} ranks")
     nx = _grid_nx(state)
-    _check_layout(state, ps.n_capacity, mesh.ranks, nx)
     local = _on_particles(
         lambda p: split_particles(p, mesh.rank, mesh.ranks), state)
 
     def cut(path, x):
-        if nx is not None and not _owned(path):
-            place = placement(x, ps.n_capacity, mesh.ranks, nx)
-            if place != REPLICATE:
-                x = _block(x, place[1], mesh.rank, mesh.ranks)
+        if not _owned(path):
+            axis = grid_axis(x, nx, mesh.ranks)
+            if axis is not None:
+                x = _block(x, axis, mesh.rank, mesh.ranks)
         return x.to(mesh.device)
     return _map(cut, local)
 
@@ -257,18 +260,20 @@ def gather_state(state, mesh: Mesh, comm=None):
 class Shard:
     """One rank's part in a split coupled step (parallel/step.py): its
     `rows` (row0, n_rows) of the ranks' rows, the `comm` that joins the
-    ranks, and the row arrays of all rows that the contact chain reads
-    partners from: radius, mass and active, gathered when the step opens
-    and again after every neighbor rebuild and every deletion (they
-    change nowhere else); pos, vel and omega, gathered for each force
-    evaluation (`view`)."""
+    ranks, and the row arrays of all rows that the force passes read
+    partners from: radius, mass and active (and mol with rigid clumps),
+    gathered when the step opens and again after every neighbor rebuild,
+    add and deletion (they change nowhere else); pos, vel and omega,
+    gathered for each force evaluation (`view`)."""
 
     def __init__(self, comm, particles):
         self.comm = comm
         n_rows = particles.n_capacity
         self.rows = (comm.rank * n_rows, n_rows)
+        self.keys = ("radius", "mass", "active") + (
+            ("mol",) if particles.rigid is not None else ())
         self.full = {k: comm.all_gather_rows(getattr(particles, k))
-                     for k in ("radius", "mass", "active")}
+                     for k in self.keys}
 
     def set_active(self, active):
         """The own rows' active flags changed (a deletion): gather them."""
@@ -279,7 +284,7 @@ class Shard:
         return self.full["active"]
 
     def view(self, particles):
-        """The own state with pos, vel, omega, radius, mass and active of
+        """The own state with pos, vel, omega and the arrays of `full` of
         all n rows (gathered), the table and the histories its own: what
         the contact chain takes with rows=self.rows."""
         return particles._replace(
@@ -288,13 +293,17 @@ class Shard:
             omega=self.comm.all_gather_rows(particles.omega),
             **self.full)
 
+    def own(self, x):
+        """The own rows of a row array x of all rows."""
+        row0, n = self.rows
+        return x[row0:row0 + n]
+
     def gather(self, particles):
         """The whole ParticleState, on every rank."""
         return join_particles(particles, self.comm)
 
     def cut(self, particles):
-        """This rank's block of a whole ParticleState; radius, mass and
-        active of all rows taken from it."""
-        self.full.update(radius=particles.radius, mass=particles.mass,
-                         active=particles.active)
+        """This rank's block of a whole ParticleState; the arrays of
+        `full` taken from it."""
+        self.full.update({k: getattr(particles, k) for k in self.keys})
         return split_particles(particles, self.comm.rank, self.comm.ranks)

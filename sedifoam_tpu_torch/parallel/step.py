@@ -10,25 +10,41 @@ fluid on every rank, alike: `fluid_layout`).
   ghost plane from each x-neighbour (the processor patch, ops.py,
   linop.py), every global reduction sums plane partials gathered from
   the ranks in x order (grid.Grid.total: the dots and norms of PCG and
-  BiCGStab, the means, the Ubar forcing), the FastDiag x transform runs
-  between two all-to-alls (fastsolve.py), the pressure reference value
-  comes from its owner. The fields on x faces stay whole in the state:
-  the step cuts its slab's faces out and gathers them back at its end.
-  On the CPU the step equals one process's bit for bit at any number of
-  ranks.
+  BiCGStab, the means, the Ubar forcing), every FastDiag solve gathers
+  its right-hand side and solves on the whole grid, alike on every rank
+  (fastsolve.py), the pressure reference value comes from its owner.
+  The fields on x faces stay whole in the state: the step cuts its
+  slab's faces out and gathers them back at its end. The DNS forcing
+  gathers its spectral planes and takes the whole inverse transform on
+  every rank alike (fluid/step.py); a region patch (jetFlow's disc
+  inlet) blends over the slab's faces of its mask.
 - The DEM: each substep's drift and kicks are per row; before each
   force evaluation pos, vel and omega are gathered from the ranks, and
-  the contact chain (the kernel on the card) takes the own rows against
-  partners in all rows; the rebuild test takes the largest displacement
-  over the ranks; a rebuild gathers the whole particle state, rebuilds
-  (and sorts) it on every rank alike and cuts the own block out again
-  (dem/integrate.py).
+  the contact chain (the kernel on the card), cohesion and lubrication
+  take the own rows against partners in all rows; the walls are per
+  row; the rebuild test takes the largest displacement over the ranks;
+  a rebuild gathers the whole particle state, rebuilds (and sorts) it
+  on every rank alike and cuts the own block out again
+  (dem/integrate.py). The lattice backend's table and history are
+  whole on every rank, as GSPMD computes them: its force pass and
+  rebuild run on the gathered rows, and each rank keeps its own rows.
+  Rigid clumps: the bodies are whole on every rank and summed from the
+  gathered member rows alike on every rank (dem/rigid.py).
+- Injection and deletion (dem/inject.py): the countdown and the key are
+  whole, so every rank takes an add alike; the add runs on the gathered
+  state and each rank cuts its block out; whether the delete box
+  removed anyone is the largest over the ranks.
 - Particle to grid: with the fluid whole, each rank scatters its rows
   into a partial grid and the partials are summed over the ranks; with
   slabs, the rows go to the rank whose slab holds their cell and are
   scattered there in their global order (coupling/transfer.py). Grid to
   particle reads the fields of the whole domain: gathered from the slabs
   (an all-gather of the fields it reads), none with the fluid whole.
+
+Every decision is taken alike on every rank, and every sum is one
+process's sum in one process's order, so that on the CPU the split step
+equals one process's bit for bit on every configuration CoupledStep
+steps, at any number of ranks that divides the capacity.
 
 The step is eager: capturing it as one CUDA graph needs the collectives
 inside the capture, which NCCL can give and gloo cannot (ROADMAP).
@@ -47,44 +63,9 @@ from sedifoam_tpu_torch import bridge
 from sedifoam_tpu_torch.dem import fused
 from sedifoam_tpu_torch.parallel.comm import Comm
 from sedifoam_tpu_torch.parallel.mesh import Mesh, Shard, fluid_layout, \
-    gather_state, shard_state
+    gather_state, particle_axes, shard_state
 from sedifoam_tpu_torch.solver import CoupledStep, SimConfig, SimState, \
     coupled_step
-
-
-def check_supported(cfg: SimConfig, particles=None, ranks=None) -> None:
-    """Raise NotImplementedError, naming it, for each combination the
-    split step does not cover yet (each is queued in ROADMAP.md; the JAX
-    package reaches them through GSPMD). `ranks`: where the fluid splits
-    over them, the fluid's too."""
-    from sedifoam_tpu_torch.bc import PATCHES, RegionPatchBC
-    from sedifoam_tpu_torch.dem.fused import walls_fusible
-    d, c = cfg.dem, cfg.cloud
-    missing = []
-    if ranks is not None and fluid_layout(cfg.grid.nx, ranks) == "slab":
-        if any(isinstance(f.patch(p), RegionPatchBC)
-               for f in cfg.bcs for p in PATCHES):
-            missing.append("region patches (RegionPatchBC) on a fluid split "
-                           "along x")
-        if cfg.fluid.add_dns_force:
-            missing.append("the DNS forcing on a fluid split along x")
-    if d.backend == "lattice":
-        missing.append("the lattice backend")
-    if d.cohesion is not None:
-        missing.append("cohesion")
-    if d.lubrication is not None:
-        missing.append("lubrication")
-    if c.add_particle > 0 or c.delete_particle > 0:
-        missing.append("injection and deletion (add_particle, "
-                       "delete_particle)")
-    if not walls_fusible(d.walls):
-        missing.append("walls the contact kernel cannot fuse (cylinder, "
-                       "wiggle, shear)")
-    if particles is not None and particles.rigid is not None:
-        missing.append("rigid clumps")
-    if missing:
-        raise NotImplementedError("ShardedStep does not split "
-                                  + ", ".join(missing) + " over ranks yet")
 
 
 class ShardedStep(nn.Module):
@@ -100,7 +81,6 @@ class ShardedStep(nn.Module):
 
     def __init__(self, cfg: SimConfig, mesh: Mesh, dtype=torch.float64):
         super().__init__()
-        check_supported(cfg, ranks=mesh.ranks)
         self.cfg = cfg
         self.mesh = mesh
         self.comm = Comm()
@@ -115,7 +95,6 @@ class ShardedStep(nn.Module):
         self.step = CoupledStep(local, dtype, mesh.device)
 
     def forward(self, local: SimState) -> SimState:
-        check_supported(self.cfg, local.particles)
         shard = Shard(self.comm, local.particles)
         if self.fluid == "whole":
             return coupled_step(local, self.cfg, self.step.smoother,
@@ -154,11 +133,47 @@ TABLES = ("nbr_idx", "shear", "wall_shear", "pos")
 FIELDS = ("p", "Ub", "alpha")
 
 
+def _as_bits(x):
+    """x as integers of its width, for an exact elementwise max."""
+    if x.dtype == torch.bool:
+        return x.to(torch.int32)
+    if x.is_floating_point():
+        return x.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[x.element_size()])
+    return x
+
+
+def check_replicas(particles, comm) -> None:
+    """Raise, naming them, unless the particle arrays every rank holds
+    whole (the countdown and key of the injection, nbr_dropped, the
+    rigid bodies, the lattice's table and history) are the same on every
+    rank bit for bit: the decisions of the split step read them, so a
+    rank whose copy parted would take another branch than the rest."""
+    whole = {k: getattr(particles, k)
+             for k, a in particle_axes(particles).items()
+             if a is None and isinstance(getattr(particles, k),
+                                         torch.Tensor)}
+    if particles.rigid is not None:
+        whole.update({f"rigid.{k}": v for k, v in
+                      zip(particles.rigid._fields, particles.rigid)})
+    parted = [k for k, x in whole.items()
+              if not torch.equal(_as_bits(x),
+                                 comm.all_reduce_max(_as_bits(x)))]
+    parted = comm.all_reduce_max(torch.tensor(
+        [k in parted for k in whole], dtype=torch.int32,
+        device=particles.pos.device))
+    names = [k for k, bad in zip(whole, parted.tolist()) if bad]
+    if names:
+        raise RuntimeError("the ranks' copies of " + ", ".join(names)
+                           + " part")
+
+
 def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
               keep=None) -> dict:
     """A rank's job (parallel/launch.run_ranks): the whole state state_np
     (a bridge.sim_state_to_numpy dict) cut to this rank's block, then
-    n_steps steps of ShardedStep. Returns, for this rank: the bytes of
+    n_steps steps of ShardedStep, the ranks' whole arrays held equal
+    after each (check_replicas). Returns, for this rank: the bytes of
     its own TABLES and FIELDS, the fluid's layout ("slab" or "whole"),
     the tags of its rows before and after, per step the wall
     milliseconds (synchronized on a card) and the bytes its collectives
@@ -193,6 +208,7 @@ def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
         out["launch_sizes"] += fused.launch_sizes() - sizes0
         out["comm"].append({k: v - bytes0.get(k, 0)
                             for k, v in step.comm.bytes.items()})
+        check_replicas(local.particles, Comm())
         if keep is None or i in keep:
             whole = gather_state(local, mesh, step.comm)
             if mesh.rank == 0:
@@ -201,3 +217,9 @@ def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
     out["launches"] = sum(out["launch_sizes"].values())
     out["tags_after"] = local.particles.tag.cpu().numpy()
     return out
+
+
+def run_jobs(mesh: Mesh, jobs) -> list:
+    """run_steps(mesh, *job) for each job (cfg, state_np, n_steps[,
+    keep]) in turn, in one spawn of the ranks: their results in order."""
+    return [run_steps(mesh, *job) for job in jobs]

@@ -27,11 +27,11 @@ the grid fields the port keeps whole (listed below: none); the binned case on
 2 ranks equals the port's one-rank step through three steps whose
 rebuilds move particles between the ranks (measured: 2 particles
 changed ranks; p within 4.3e-16, vel 1.1e-16 of scale, pos 0 apart; the
-particles bit for bit after step 1), and ShardedStep raises, naming it,
-on each combination it does not split yet.
+particles bit for bit after step 1). ShardedStep steps every
+configuration CoupledStep steps: tests/test_torch_parallel_dem.py and
+tests/test_torch_parallel_cases.py hold it on each option.
 """
 
-import dataclasses
 import importlib
 
 import pytest
@@ -47,10 +47,8 @@ from sedifoam_tpu.parallel.mesh import make_mesh as jmake_mesh  # noqa: E402
 from sedifoam_tpu.parallel.mesh import shard_state as jshard  # noqa: E402
 from sedifoam_tpu.solver import coupled_step as jcoupled  # noqa: E402
 from sedifoam_tpu_torch import bridge  # noqa: E402
-from sedifoam_tpu_torch import config as tcfg  # noqa: E402
 from sedifoam_tpu_torch import solver as tsolver  # noqa: E402
 from sedifoam_tpu_torch.dem import fused as tfused  # noqa: E402
-from sedifoam_tpu_torch.dem.state import make_particles  # noqa: E402
 from sedifoam_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from sedifoam_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from sedifoam_tpu_torch.parallel.step import ShardedStep  # noqa: E402
@@ -280,41 +278,3 @@ def test_placement_and_mesh_raise():
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="no process group"):
         tmesh.make_mesh(device="cpu")
-
-
-def _unsupported(cfg):
-    """(label, cfg or particles) pairs ShardedStep refuses."""
-    d, c = cfg.dem, cfg.cloud
-    rep = dataclasses.replace
-    cyl = tcfg.WallSpec(style="zcylinder", cylradius=1e-3, params=d.pair)
-    return [
-        ("the lattice backend", rep(cfg, dem=rep(d, backend="lattice"))),
-        ("cohesion", rep(cfg, dem=rep(d, cohesion=tcfg.CohesionParams(
-            ah=1e-20)))),
-        ("lubrication", rep(cfg, dem=rep(d, lubrication=object()))),
-        ("injection and deletion", rep(cfg, cloud=rep(c, add_particle=1))),
-        ("injection and deletion", rep(cfg, cloud=rep(c,
-                                                      delete_particle=1))),
-        ("walls the contact kernel cannot fuse", rep(cfg, dem=rep(
-            d, walls=d.walls + (cyl,)))),
-    ]
-
-
-@pytest.mark.parametrize("which", range(7))
-def test_sharded_step_raises_on_what_it_does_not_split(cases, one_rank,
-                                                       which):
-    _, _, cfg, snp, _ = cases["binned"]
-    if which < 6:
-        label, bad = _unsupported(cfg)[which]
-        with pytest.raises(NotImplementedError, match=label):
-            ShardedStep(bad, one_rank)
-        return
-    st = bridge.sim_state_from_numpy(snp, device="cpu")
-    mol = np.repeat(np.arange(1, 129), 2)
-    clumps = make_particles(st.particles.pos.numpy(), 2.5e-4, 2500.0,
-                            mol=mol, n_walls=3, neighbor_k=16, device="cpu")
-    step = ShardedStep(cfg, one_rank)
-    with pytest.raises(NotImplementedError, match="rigid clumps"):
-        step(st._replace(particles=clumps))
-    with pytest.raises(NotImplementedError, match="rigid clumps"):
-        tmesh.shard_state(st._replace(particles=clumps), one_rank)
