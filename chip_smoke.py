@@ -187,6 +187,24 @@ which passes or exits nonzero:
    bench bed; and every stencil, FastDiag solve and solver of the slab
    path at the channel's shape (f32, tests/torch_port_slabs.py) against
    the whole grid's call, naming any operation that parts on the card;
+   (g) which collectives a CUDA graph takes: those the split step
+   calls (all_gather_into_tensor, all_reduce sum and max, a fixed-size
+   all_to_all_single, broadcast), each called straight through
+   torch.distributed on one NCCL rank, in a plain capture (global and
+   thread-local error modes) and in the body of an IF and of a WHILE
+   node (graphs.cond, graphs.while_loop), each replay held against the
+   eager call bit for bit; the phase fails, printing the error, if one
+   is refused; (h) the split step captured as one CUDA graph
+   (parallel/step.GraphedShardedStep) on one NCCL rank, on the bench
+   bed, the channel and every configuration of (f), SHARDED_STEPS
+   replays each: bit for bit with the eager ShardedStep stepped beside
+   them on the rank and with CoupledStep here, 0 host syncs a replay,
+   the kernel's launches inside the replays (counted on the device) as
+   one process's and its halves of the last replayed table against the
+   whole launch and the plain version; capture seconds, conditional
+   nodes, ms per replayed step beside the eager ShardedStep's and the
+   one-process GraphedStep's on the same state, the collective bytes a
+   replay (counted on the device) and those the graph holds;
    each phase's seconds in the last line before the output;
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, graph (from each case's
@@ -2891,6 +2909,31 @@ def own_rows_timing(label, p, d, smi):
     return out
 
 
+def graphed_ms(cfg, state, n_steps):
+    """The one-process step captured (solver.GraphedStep) from a copy of
+    `state`: (capture seconds, ms per replayed step, host clock
+    synchronized, n_steps replays). Its launches do not count."""
+    import torch
+    from sedifoam_tpu_torch.solver import CoupledStep, GraphedStep
+    counted = launch_snapshot()
+    step = GraphedStep(CoupledStep(cfg, state.particles.pos.dtype,
+                                   state.particles.pos.device))
+    st = step(tree_map(torch.clone, state))
+    ms = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = step(st)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    cap = step.capture_seconds
+    del step, st
+    launch_restore(counted)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cap, ms
+
+
 def phase_sharded(dev, k, smi):
     """The coupled step split over ranks (sedifoam_tpu_torch/parallel/):
     (a) the kernel on row ranges of the bench table: the two halves equal
@@ -2919,8 +2962,17 @@ def phase_sharded(dev, k, smi):
     or within SHARDED_TOL of scale, the fields that part named; the
     kernel's halves of each binned table equal its whole launch bit for
     bit, and the own-row launches at OWN_ROW_KS are timed beside their
-    bounds, host time and plain version. Returns the launches of the
-    ranks (the main path of the split step)."""
+    bounds, host time and plain version; (g) the capture probe
+    (parallel/probe.py) on one NCCL rank: whether a plain capture and
+    the bodies of IF and WHILE nodes take each collective of the split
+    step; (h) GraphedShardedStep on one NCCL rank, on the
+    bench bed, the channel and every configuration of (f) in one spawn:
+    each replay bit for bit with the eager ShardedStep on the rank and
+    with CoupledStep here, 0 host syncs, the kernel launched inside the
+    replays as one process launches it, its halves of the last replayed
+    table held as in (f); ms per replay beside the one-process
+    GraphedStep's (graphed_ms). Returns the launches of the ranks (the
+    main path of the split step)."""
     import numpy as np
     import torch
     from sedifoam_tpu_torch import bench_case, bridge, cases
@@ -2929,6 +2981,7 @@ def phase_sharded(dev, k, smi):
     from sedifoam_tpu_torch.io.case import load_case
     from sedifoam_tpu_torch.parallel.launch import run_ranks
     from sedifoam_tpu_torch.parallel.mesh import particle_axes
+    from sedifoam_tpu_torch.parallel.probe import probe_capture
     from sedifoam_tpu_torch.parallel.step import FIELDS, TABLES, run_jobs, \
         run_steps
     from sedifoam_tpu_torch.solver import CoupledStep
@@ -2970,6 +3023,7 @@ def phase_sharded(dev, k, smi):
             out.append(tree_map(lambda t: t.cpu(), st))
         return out, ms
     refs, ref_ms = one_process(step, SHARDED_STEPS, state)
+    one_graphed = {"bench bed": graphed_ms(cfg, state, SHARDED_STEPS)}
     # rows in a seeded random order: the first sorted rebuild moves them
     order = torch.as_tensor(np.random.RandomState(11).permutation(
         state.particles.n_capacity), device=dev)
@@ -3120,6 +3174,7 @@ def phase_sharded(dev, k, smi):
     cstate = cstep.initialize(cfluid, cparts)
     csnp = bridge.sim_state_to_numpy(cstate)
     crefs, cref_ms = one_process(cstep, SHARDED_STEPS, cstate)
+    one_graphed["channel"] = graphed_ms(ccfg, cstate, SHARDED_STEPS)
     del cstate, cstep
     say(f"sharded: the channel {ccfg.grid.shape}, one process, "
         "CoupledStep eagerly: " + ", ".join(f"{m:.1f}" for m in cref_ms)
@@ -3177,6 +3232,7 @@ def phase_sharded(dev, k, smi):
                                                        scfg.dem, smi))
             launch_restore(counted)
             del last
+        one_graphed[label] = graphed_ms(scfg, sstate, SHARDED_STEPS)
         jobs.append((scfg, bridge.sim_state_to_numpy(sstate), SHARDED_STEPS))
         split.append((label, scfg, srefs, sms, ones))
         say(f"sharded [{label}]: grid {scfg.grid.shape}, {ps.n_capacity} "
@@ -3204,8 +3260,86 @@ def phase_sharded(dev, k, smi):
                    particles_first=False)
         got["ref_ms"] = sms
         out["configs"][label] = got
+
+    # (g) which collectives of the split step a CUDA graph takes, and
+    # where: each, called straight through torch.distributed on one NCCL
+    # rank, in a plain capture (both error modes) and in the bodies of an
+    # IF and a WHILE node
+    t0 = time.perf_counter()
+    probe = run_ranks(probe_capture, 1, backend="nccl", device=dev,
+                      timeout=SHARDED_TIMEOUT)[0]
+    table = probe["results"]
+    refused = {f"{c} in {p}": r for c, d in table.items()
+               for p, r in d.items() if r != "ok"}
+    say(f"sharded [capture probe, one NCCL rank, NCCL {probe['nccl']}, "
+        f"{time.perf_counter() - t0:.1f} s]: " + "; ".join(
+            f"{c}: " + ", ".join(f"{p} {'ok' if r == 'ok' else 'REFUSED'}"
+                                 for p, r in d.items())
+            for c, d in table.items()) + f" ({smi})")
+    if refused:
+        fail("sharded: a collective of the split step is refused in a "
+             "capture: " + "; ".join(f"{w}: {e}" for w, e in
+                                     refused.items()))
+    out["probe"] = {"nccl": probe["nccl"],
+                    "ok": sorted(f"{c} in {p}" for c, d in table.items()
+                                 for p in d)}
+
+    # (h) the split step captured as one CUDA graph (GraphedShardedStep) on
+    # one NCCL rank: the bench bed, the channel and every configuration
+    # of (f), in one spawn
+    graphed = [("bench bed", cfg, snp, refs, None),
+               ("channel", ccfg, csnp, crefs, None)] + [
+        (label, scfg, job[1], srefs, ones)
+        for (label, scfg, srefs, _, ones), job in zip(split, jobs)]
+    t0 = time.perf_counter()
+    res = run_ranks(run_jobs, 1, args=([
+        (gcfg, gsnp, SHARDED_STEPS, None, True)
+        for _, gcfg, gsnp, _, _ in graphed],), backend="nccl", device=dev,
+        timeout=SHARDED_TIMEOUT)[0]
+    say(f"sharded: one NCCL rank captured and replayed {len(graphed)} "
+        f"configurations in {time.perf_counter() - t0:.1f} s of wall time, "
+        "process start-up included")
+    out["graphed"] = {}
+    for r, (label, gcfg, _, grefs, ones) in zip(res, graphed):
+        parted = [(i, f) for i, fs in enumerate(r["parted"], 1) for f in fs]
+        cap_s, one_ms = one_graphed[label]
+        say(f"sharded [{label}, graphed, one NCCL rank]: capture "
+            f"{r['capture_s']:.2f} s, {r['nodes']['if']} IF and "
+            f"{r['nodes']['while']} WHILE nodes; ms per replayed step "
+            + ", ".join(f"{m:.2f}" for m in r["ms"]) + " (eager ShardedStep "
+            + ", ".join(f"{m:.1f}" for m in r["eager_ms"]) + "; one process "
+            "GraphedStep " + ", ".join(f"{m:.2f}" for m in one_ms)
+            + f", its capture {cap_s:.2f} s); host syncs a replay "
+            f"{r['syncs']}; bytes a replay {json.dumps(r['comm'])}, "
+            f"captured {json.dumps(r['capture_bytes'])}; fields parted "
+            f"from the eager ShardedStep: {parted or 'none'} ({smi})")
+        if parted:
+            fail(f"sharded [{label}, graphed]: replays part from the eager "
+                 f"ShardedStep in {parted}")
+        if any(r["syncs"]):
+            fail(f"sharded [{label}, graphed]: host syncs inside a replay: "
+                 f"{r['syncs']}")
+        got = held(f"{label} graphed nccl x1", [r], grefs, bitwise=True,
+                   cfg=gcfg, expected=ones)
+        got.update(capture_s=r["capture_s"], nodes=r["nodes"],
+                   syncs=r["syncs"], eager_ms=r["eager_ms"],
+                   capture_bytes=r["capture_bytes"],
+                   one_process_graphed_ms=one_ms,
+                   one_process_capture_s=cap_s)
+        if gcfg.dem.backend == "binned" and gcfg.dem.fused_chain:
+            if got["launches"] == 0:
+                fail(f"sharded [{label}, graphed]: no kernel launch inside "
+                     "the replays")
+            last = bridge.sim_state_from_numpy(
+                r["states"][SHARDED_STEPS], device=dev).particles
+            counted = launch_snapshot()
+            got["halves"] = chain_halves(f"{label} after the replays", last,
+                                         gcfg.dem, 1e-5)
+            launch_restore(counted)
+            del last
+        out["graphed"][label] = got
     paths = [out[key] for key in ("gloo", "nccl", "rebuilt", "channel")] \
-        + list(out["configs"].values())
+        + list(out["configs"].values()) + list(out["graphed"].values())
     out["launches"] = sum(path["launches"] for path in paths)
     out["ran_at"] = [{"N": path["N"], "rows": rows, "K": path["K"],
                       "launches": c, "path": "sharded"}
@@ -3422,7 +3556,8 @@ def main():
         "rows_bound_ms": sharded["rows_bound_ms"],
         "sharded": {key: sharded[key] for key in (
             "gloo", "nccl", "rebuilt", "channel", "ref_ms",
-            "channel_ref_ms", "slab_ops_parting", "configs", "own_rows")},
+            "channel_ref_ms", "slab_ops_parting", "configs", "own_rows",
+            "probe", "graphed")},
         "shapes": k["shapes"],
         "graphs": GRAPHS, "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {

@@ -118,13 +118,13 @@ def evolve(fluid: FluidState, particles: ParticleState,
                 sites, grid, ccfg, fcfg.dt, shard)
             particles = particles_._replace(time_to_add=tta, rng_key=key)
 
-            def setup(st):
+            def setup(st, sh=shard):
                 # newly added particles need a fresh neighbor table and
                 # forces (their reused slots carry stale rows)
                 st = _dem.maybe_rebuild_neighbors(st, dcfg, force=True,
-                                                  shard=shard)
+                                                  shard=sh)
                 return _dem.compute_forces(st, dcfg, shearupdate=False,
-                                           shard=shard)
+                                           shard=sh)
 
             # the reference's cond(added, setup, cond(deleted, scrub)) as
             # two conds in a row: deletions alone need no rebuild, but
@@ -132,7 +132,10 @@ def evolve(fluid: FluidState, particles: ParticleState,
             # (tests/test_ghost_partner.py)
             if ccfg.add_particle > 0:
                 _inject.count_sync()
-                particles = graphs.cond(added, setup, particles)
+                # with a shard the rebuild changes its gathered arrays:
+                # Shard.cond carries them
+                particles = graphs.cond(added, setup, particles) \
+                    if shard is None else shard.cond(added, setup, particles)
             if ccfg.delete_particle > 0 and len(ccfg.delete_box) == 6:
                 _inject.count_sync()
                 particles = graphs.cond(

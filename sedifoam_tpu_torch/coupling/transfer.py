@@ -20,11 +20,13 @@ rank's sorted sum, so the fields agree with it to round-off. The
 gathers need no exchange.
 
 With the fluid split along grid-x (grid.SlabGrid) each row's values go
-to the rank whose slab holds its cell (parallel/comm.route_rows: an
-all-to-all of the rows that leave their rank; with rows sorted by bin,
-few do), and each rank scatters the rows of its slab's cells in the
-rows' global order: one process's sum, bit for bit. The gathers read
-the fields of the whole domain, gathered from the slabs (`join`).
+to the rank whose slab holds its cell, and each rank scatters the rows
+of its slab's cells in the rows' global order: one process's sum, bit
+for bit. The exchange is of a fixed size, so that a captured step can
+hold it (`_to_slabs`: every rank sends every rank a block of all its
+rows, those bound elsewhere aimed at a dump cell that the sum slices
+off). The gathers read the fields of the whole domain, gathered from
+the slabs (`join`).
 """
 
 from __future__ import annotations
@@ -60,16 +62,32 @@ def _segment_sum(w, cells, n_cells):
     return out.index_put_((cells,), w, accumulate=True)
 
 
+def _to_slabs(w, cells, grid: SlabGrid):
+    """(w, cells) of the rows of all ranks, in their global order, each
+    cell local to this rank's slab, the rows of other slabs' cells at a
+    dump cell past its last (grid.n_cells). Each rank sends each rank a
+    block of all its rows: their values, and their cells local to the
+    receiver's slab (the slabs are alike in size) as int32. Two
+    fixed-size all-to-alls."""
+    comm, n = grid.comm, grid.n_cells
+    ranks = torch.arange(comm.ranks, device=cells.device)[:, None]
+    local = cells[None, :] - ranks * n                      # (R, rows)
+    local = torch.where((local >= 0) & (local < n), local,
+                        torch.full_like(local, n))
+    got = comm.all_to_all_blocks(w.expand((comm.ranks,) + w.shape))
+    return (got.reshape((-1,) + tuple(w.shape[1:])),
+            comm.all_to_all_blocks(local.int()).reshape(-1).long())
+
+
 def _scatter(w, cells, grid: Grid, shard):
     """(grid.n_cells, ...) sums of the rows w (N, ...) at their domain
     cells: over the ranks' rows too in a split step (the module
     docstring)."""
     if isinstance(grid, SlabGrid):
-        plane = grid.ny * grid.nz
-        if grid.comm.ranks > 1:
-            dest = torch.div(cells, grid.nx * plane, rounding_mode="floor")
-            w, cells = grid.comm.route_rows(dest, w, cells)
-        return _segment_sum(w, cells - grid.x_start * plane, grid.n_cells)
+        if grid.comm.ranks == 1:
+            return _segment_sum(w, cells, grid.n_cells)
+        w, local = _to_slabs(w, cells, grid)
+        return _segment_sum(w, local, grid.n_cells + 1)[:grid.n_cells]
     flat = _segment_sum(w, cells, grid.n_cells)
     return flat if shard is None else shard.comm.all_reduce_sum(flat)
 

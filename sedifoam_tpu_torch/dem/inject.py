@@ -245,16 +245,17 @@ def maybe_add_delete(state: ParticleState, time_to_add, rng_key, sites,
         key_add, key_next = keys[0], keys[1]
 
         def do_add(st):
-            if shard is not None:
-                st = shard.gather(st)
             if ccfg.delete_before_add and len(ccfg.clear_box) == 6:
                 st = delete_in_box(st, ccfg.clear_box)
-            st = add_particles(st, sites, ccfg, key_add)
-            return st if shard is None else shard.cut(st)
+            return add_particles(st, sites, ccfg, key_add)
 
         due = time_to_add <= 0.0
         count_sync()
-        state = graphs.cond(due, do_add, state)
+        if shard is None:
+            state = graphs.cond(due, do_add, state)
+        else:
+            state = shard.cond(due, lambda st, sh: sh.cut(do_add(
+                sh.gather(st))), state)
         time_to_add = torch.where(due,
                                   torch.full_like(time_to_add,
                                                   ccfg.add_interval),

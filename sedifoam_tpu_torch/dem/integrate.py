@@ -156,10 +156,16 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
                                                      dropped))
 
     if shard is not None:
-        rebuild_whole = do_rebuild
+        # the whole state gathered, rebuilt and cut: the rows' radius,
+        # mass, active and mol of all ranks change with it, so the cond
+        # carries them (parallel/mesh.Shard.cond)
+        def rebuild_split(st: ParticleState, sh) -> ParticleState:
+            return sh.cut(do_rebuild(sh.gather(st)))
 
-        def do_rebuild(st: ParticleState) -> ParticleState:
-            return shard.cut(rebuild_whole(shard.gather(st)))
+        if force:
+            return rebuild_split(state, shard)
+        return shard.cond(_need_rebuild(state, cfg, shard), rebuild_split,
+                          state)
 
     if force:
         return do_rebuild(state)

@@ -17,8 +17,11 @@ group:
   ``placement`` (the JAX module's layout rules), ``shard_state`` /
   ``gather_state``, and ``Shard``, a rank's part in a split step;
 - ``comm``: the collectives the step uses, with a byte counter by kind;
-- ``step``: ``ShardedStep``, the coupled step split over the mesh;
-- ``launch``: ``run_ranks``, which starts ranks on one host.
+- ``step``: ``ShardedStep``, the coupled step split over the mesh, and
+  ``GraphedShardedStep``, the same captured as one CUDA graph per rank
+  with its NCCL collectives inside;
+- ``launch``: ``run_ranks``, which starts ranks on one host;
+- ``probe``: which collectives a CUDA graph takes, and where.
 
 What is split: the particle arrays (rows, and the (K, N) table and the
 contact and wall histories along N), where the DEM's state and time go;
@@ -29,6 +32,6 @@ ranks, FastDiag solves on the gathered whole field), else it is
 whole on every rank, stepped by every rank alike. What has no axis of
 N stays whole on every rank, computed alike by each: the rigid bodies,
 the lattice's slot table and history. ``ShardedStep`` steps every
-configuration ``solver.CoupledStep`` steps; the capture of the split
-step as one CUDA graph is queued in ROADMAP.md.
+configuration ``solver.CoupledStep`` steps, eagerly over gloo and, under
+NCCL, replayed as one graph, as the JAX package jits its sharded step.
 """

@@ -15,7 +15,16 @@ global reduction (`gather_planes`: each rank then sums all planes in x
 order alike), the whole field from the slabs (`all_gather_rows`: the
 FastDiag solves and the grid-to-particle gathers read it), the value of
 one cell from its owner (`broadcast_cell`), and the particle rows'
-contributions to the cells of another rank's slab (`route_rows`).
+contributions to the cells of another rank's slab (`all_to_all_blocks`:
+each rank sends each rank a block of all its rows, coupling/transfer.py
+masks the rows bound elsewhere).
+
+Every call's shapes are fixed by the state's, never by its data, and
+no call reads a tensor on the host: under NCCL the split step captures
+as one CUDA graph with its collectives inside (parallel/step.py). Under
+NCCL only one rank has been run (one card holds one rank of a
+communicator): there `halo` and `broadcast_cell` take their one-rank
+short cuts, so their exchanges between NCCL ranks have not been run.
 
 `Comm.bytes` counts, by kind, the bytes of the tensors each call
 returns on this rank: the convention of the JAX package's dry run
@@ -24,13 +33,14 @@ collectives in the compiled program), under its names:
 ``collective-permute`` (halos), ``all-to-all``, ``all-gather``,
 ``all-reduce`` and ``collective-broadcast``. Nothing is counted where
 nothing leaves the rank (one rank; a rank's own block of an
-all-to-all).
+all-to-all). Under a capture the counts go to `device_bytes`, on the
+device, which each replay adds to (`replayed_bytes`).
 
 Over gloo the tensors may lie on the CPU or on a card: gloo carries a
 CUDA tensor through host memory itself in all_gather and all_reduce
-(on the H100, torch 2.11); the point-to-point halos, the all-to-alls
-and the broadcast are staged through host memory here. NCCL takes
-them on the card.
+and into one tensor (on the H100, torch 2.11); the all-to-alls (the
+halos' and the particle rows') and the broadcast are staged through
+host memory here. NCCL takes them on the card.
 """
 
 from __future__ import annotations
@@ -39,6 +49,13 @@ import collections
 
 import torch
 import torch.distributed as dist
+
+from sedifoam_tpu_torch.graphs import capturing
+
+# the kinds of collective `Comm.bytes` counts, under the JAX package's
+# names
+KINDS = ("collective-permute", "all-to-all", "all-gather", "all-reduce",
+         "collective-broadcast")
 
 
 class Comm:
@@ -50,6 +67,46 @@ class Comm:
         self.rank = dist.get_rank()
         self.backend = dist.get_backend()
         self.bytes = collections.Counter()
+        self.device_bytes = None
+        self.captured = collections.Counter()
+
+    def _count(self, kind, nbytes, device):
+        """Count the bytes a call returns: on the host for an eager call;
+        under a capture on the device, in `device_bytes`, so that a
+        replay counts what it ran (a conditional node's body only when
+        the branch was taken, a loop's body once an iteration), and in
+        `captured` on the host, once for each call the graph holds."""
+        i = KINDS.index(kind)
+        if capturing():
+            if self.device_bytes is None:
+                raise RuntimeError("Comm: a collective's first call is under "
+                                   "a capture: warm the step up first")
+            self.device_bytes[i].add_(nbytes)
+            self.captured[kind] += nbytes
+            return
+        if self.device_bytes is None and device.type == "cuda":
+            self.device_bytes = torch.zeros(len(KINDS), dtype=torch.int64,
+                                            device=device)
+        self.bytes[kind] += nbytes
+
+    def replayed_bytes(self) -> dict:
+        """The bytes by kind the replays of captured steps have counted
+        on the device so far (a host read)."""
+        if self.device_bytes is None:
+            return {}
+        return {k: int(v) for k, v in zip(KINDS, self.device_bytes.tolist())
+                if v}
+
+    def _gather(self, src):
+        """The ranks' blocks of src (one shape on every rank, contiguous)
+        stacked along a new first axis: one all-gather into one
+        tensor."""
+        out = torch.empty((self.ranks * src.shape[0],) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src)
+        self._count("all-gather", out.numel() * out.element_size(),
+                    src.device)
+        return out.view((self.ranks,) + tuple(src.shape))
 
     def all_gather_rows(self, x, axis: int = 0):
         """The ranks' blocks of x (one shape on every rank) concatenated
@@ -57,16 +114,15 @@ class Comm:
         flag = x.dtype == torch.bool    # gathered as bytes
         src = x.contiguous()
         src = src.view(torch.uint8) if flag else src
-        parts = [torch.empty_like(src) for _ in range(self.ranks)]
-        dist.all_gather(parts, src)
-        out = torch.cat(parts, dim=axis)
-        self.bytes["all-gather"] += out.numel() * out.element_size()
+        parts = self._gather(src)
+        out = parts.reshape((-1,) + tuple(src.shape[1:])) if axis == 0 \
+            else torch.cat(parts.unbind(0), dim=axis)
         return out.view(torch.bool) if flag else out
 
     def _all_reduce(self, x, op):
         y = x.clone()
         dist.all_reduce(y, op=op)
-        self.bytes["all-reduce"] += y.numel() * y.element_size()
+        self._count("all-reduce", y.numel() * y.element_size(), y.device)
         return y
 
     def all_reduce_sum(self, x):
@@ -87,12 +143,7 @@ class Comm:
     def gather_planes(self, p):
         """The ranks' tensors p (one shape on every rank) in rank order: a
         list (the per-plane partial sums of a reduction)."""
-        src = p.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.ranks)]
-        dist.all_gather(parts, src)
-        self.bytes["all-gather"] += src.numel() * src.element_size() \
-            * self.ranks
-        return parts
+        return list(self._gather(p.contiguous()).unbind(0))
 
     def broadcast_cell(self, local, owner: int, like):
         """A 0-d tensor on every rank: `local` on rank `owner` (None on
@@ -103,73 +154,61 @@ class Comm:
             torch.empty(1, dtype=like.dtype, device=like.device)
         host = self._staged(buf)
         dist.broadcast(host, src=owner)
-        self.bytes["collective-broadcast"] += host.element_size()
+        self._count("collective-broadcast", host.element_size(),
+                    like.device)
         return host.to(like.device).reshape(())
 
     def halo(self, x, dim: int):
         """(lo, hi): the plane of x along `dim` just below this rank's
         first (the last plane of rank - 1) and just above its last (the
         first plane of rank + 1), ranks wrapping cyclically (one rank:
-        its own last and first planes)."""
+        its own last and first planes).
+
+        One all-to-all of fixed sizes, not point-to-point sends: NCCL's
+        batched sends and receives run on a stream of its own, which a
+        CUDA graph's conditional-node body cannot capture (the probe of
+        chip_smoke.py's phase_sharded), and the halos of the solvers'
+        loops lie in such bodies. Each rank sends its first plane to rank
+        - 1 and its last to rank + 1, the first before the last where
+        those are one rank (two ranks), and so receives from rank + 1 its
+        first plane (hi) before, from rank - 1, its last (lo)."""
         first = x.narrow(dim, 0, 1)
         last = x.narrow(dim, x.shape[dim] - 1, 1)
         if self.ranks == 1:
             return last, first
         down, up = (self.rank - 1) % self.ranks, (self.rank + 1) % self.ranks
-        send_lo = self._staged(first.contiguous())
-        send_hi = self._staged(last.contiguous())
-        lo, hi = torch.empty_like(send_lo), torch.empty_like(send_hi)
-        # tags tell the two messages apart where both neighbours are one
-        # rank (two ranks); NCCL matches them in this posting order
-        ops = [dist.P2POp(dist.isend, send_lo, down, tag=0),
-               dist.P2POp(dist.isend, send_hi, up, tag=1),
-               dist.P2POp(dist.irecv, hi, up, tag=0),
-               dist.P2POp(dist.irecv, lo, down, tag=1)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        self.bytes["collective-permute"] += 2 * lo.numel() \
-            * lo.element_size()
-        return lo.to(x.device), hi.to(x.device)
+        plane = first.numel()
+        sends, sizes, recvs = [], [], []
+        for r in range(self.ranks):
+            part = ([first] if r == down else []) + ([last] if r == up
+                                                     else [])
+            sends += [q.reshape(-1) for q in part]
+            sizes.append(plane * len(part))
+            recvs.append(plane * ((r == up) + (r == down)))
+        src = self._staged(torch.cat(sends))
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, recvs, sizes)
+        self._count("collective-permute", out.numel() * out.element_size(),
+                    x.device)
+        # from rank up its first plane, then from rank down its last; at
+        # two ranks both from the one other rank, in that order
+        got = torch.split(out.to(x.device), recvs)
+        hi = got[up][:plane]
+        lo = got[down][-plane:]
+        return lo.reshape(first.shape), hi.reshape(first.shape)
 
-    def _all_to_all(self, blocks, recv_sizes):
-        """blocks[r] goes to rank r; returns the blocks received, in rank
-        order (flat tensors of recv_sizes elements)."""
+    def all_to_all_blocks(self, blocks):
+        """blocks[r] goes to rank r (blocks: (ranks, ...), one shape on
+        every rank); returns the blocks received, stacked in rank order:
+        a fixed-size all-to-all."""
         if self.ranks == 1:
-            return [blocks[0].reshape(-1)]
-        sizes = [b.numel() for b in blocks]
-        src = self._staged(torch.cat([b.reshape(-1) for b in blocks]))
-        out = torch.empty(sum(recv_sizes), dtype=src.dtype,
-                          device=src.device)
-        dist.all_to_all_single(out, src, recv_sizes, sizes)
-        own = recv_sizes[self.rank]
-        self.bytes["all-to-all"] += (out.numel() - own) * out.element_size()
-        dev = blocks[0].device
-        return [t.to(dev) for t in torch.split(out, recv_sizes)]
-
-    def _exchange_counts(self, sizes):
-        """The counts every rank sends to this one, given what this one
-        sends to each (a host list)."""
-        src = self._staged(torch.tensor(sizes, dtype=torch.int64))
+            return blocks
+        src = self._staged(blocks.contiguous())
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src)
-        return out.tolist()
-
-    def route_rows(self, dest, *rows):
-        """Each row of the tensors `rows` (N, ...) sent to rank dest[row]:
-        returns, per tensor, the rows this rank received, ordered by the
-        sending rank and then by row (the rows' global order, a rank's
-        rows being a block of them)."""
-        order = torch.argsort(dest, stable=True)
-        counts = torch.bincount(dest, minlength=self.ranks).tolist()
-        recv = self._exchange_counts(counts) if self.ranks > 1 else counts
-        out = []
-        for x in rows:
-            width = x[0].numel()
-            blocks = torch.split(x[order], counts)
-            got = self._all_to_all(list(blocks), [k * width for k in recv])
-            out.append(torch.cat([g.reshape((-1,) + x.shape[1:])
-                                  for g in got]))
-        return out
+        self._count("all-to-all", (out.numel() - out[0].numel())
+                    * out.element_size(), blocks.device)
+        return out.to(blocks.device)
 
     def total_bytes(self) -> int:
         return sum(self.bytes.values())

@@ -42,10 +42,13 @@ a replicated split would hide that nothing is split.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
 import torch.distributed as dist
+
+from sedifoam_tpu_torch import graphs
 
 REPLICATE = ("replicate",)
 
@@ -264,7 +267,14 @@ class Shard:
     partners from: radius, mass and active (and mol with rigid clumps),
     gathered when the step opens and again after every neighbor rebuild,
     add and deletion (they change nowhere else); pos, vel and omega,
-    gathered for each force evaluation (`view`)."""
+    gathered for each force evaluation (`view`).
+
+    A branch that changes these arrays (a rebuild, an add) runs through
+    `cond`, which carries them through the conditional: a captured
+    cond's body runs on replay only when its branch is taken, and a
+    warm-up runs the branch not taken on a copy, so an attribute that a
+    branch rebound would point at the arrays of a branch that may not
+    have run."""
 
     def __init__(self, comm, particles):
         self.comm = comm
@@ -277,7 +287,7 @@ class Shard:
 
     def set_active(self, active):
         """The own rows' active flags changed (a deletion): gather them."""
-        self.full["active"] = self.comm.all_gather_rows(active)
+        self.full = {**self.full, "active": self.comm.all_gather_rows(active)}
 
     @property
     def active(self):
@@ -305,5 +315,29 @@ class Shard:
     def cut(self, particles):
         """This rank's block of a whole ParticleState; the arrays of
         `full` taken from it."""
-        self.full.update({k: getattr(particles, k) for k in self.keys})
+        self.full = {**self.full,
+                     **{k: getattr(particles, k) for k in self.keys}}
         return split_particles(particles, self.comm.rank, self.comm.ranks)
+
+    def cond(self, pred, fn, particles):
+        """graphs.cond(pred, ..., particles) for a branch fn(particles,
+        shard) -> particles that may change the arrays of `full` (a
+        rebuild, an add): they ride the cond's carry, the branch works on
+        a Shard of its own, and this one takes the arrays the cond
+        returned."""
+        def branch(carried):
+            sub = self._with(carried[1])
+            return fn(carried[0], sub), sub._arrays()
+
+        out = graphs.cond(pred, branch, (particles, self._arrays()))
+        self.full = dict(zip(self.keys, out[1]))
+        return out[0]
+
+    def _arrays(self):
+        return tuple(self.full[k] for k in self.keys)
+
+    def _with(self, arrays):
+        """A copy of this Shard holding `arrays` as its `full`."""
+        sub = copy.copy(self)
+        sub.full = dict(zip(self.keys, arrays))
+        return sub

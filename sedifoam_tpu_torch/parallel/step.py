@@ -46,8 +46,18 @@ process's sum in one process's order, so that on the CPU the split step
 equals one process's bit for bit on every configuration CoupledStep
 steps, at any number of ranks that divides the capacity.
 
-The step is eager: capturing it as one CUDA graph needs the collectives
-inside the capture, which NCCL can give and gloo cannot (ROADMAP).
+No collective's shape depends on the data and nothing is read on the
+host inside the step: its decisions are graphs.cond and
+graphs.while_loop, and the arrays a branch changes ride its carry
+(parallel/mesh.Shard.cond). So under NCCL `GraphedShardedStep` captures
+the step as one CUDA graph per rank with its collectives inside, and
+replays it with one launch a step, as solver.GraphedStep does the
+one-process step (the JAX package jits the sharded step alike). Gloo
+cannot be captured: over gloo the split step runs eagerly, its
+decisions read on the host. The capture has been run at one NCCL rank
+only (one card holds one rank of a communicator), where parallel/comm's
+halos and broadcasts take their one-rank short cuts: the exchanges
+between NCCL ranks, eager or captured, have not been run.
 """
 
 from __future__ import annotations
@@ -55,11 +65,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import warnings
 
 import torch
 from torch import nn
 
-from sedifoam_tpu_torch import bridge
+from sedifoam_tpu_torch import bridge, graphs, linsolve
 from sedifoam_tpu_torch.dem import fused
 from sedifoam_tpu_torch.parallel.comm import Comm
 from sedifoam_tpu_torch.parallel.mesh import Mesh, Shard, fluid_layout, \
@@ -127,6 +138,61 @@ class ShardedStep(nn.Module):
                                       + [parts[-1]]))
 
 
+class GraphedShardedStep:
+    """A ShardedStep captured as one CUDA graph on this rank, its NCCL
+    collectives inside (graphs.StepGraph), and replayed once per call:
+    step(local) -> this rank's state after one coupled step, the graph's
+    own buffers, valid until the next call (a call on them steps them
+    without a host copy). Every rank calls it at once. One capture per
+    particle capacity, as solver.GraphedStep; the capture's warm-up step
+    (graphs.warming) runs every branch, so every collective the graph
+    holds has been called once before it. A replay makes no host sync.
+
+    Raises unless the process group is NCCL's (gloo runs the split step
+    eagerly: ShardedStep), and when a capture fails. `capture_bytes`:
+    the bytes by kind of every collective the graph holds, each body's
+    once (what a replay moves when every branch is taken once and every
+    loop runs once); a replay's own bytes are counted on the device
+    (`comm.replayed_bytes`)."""
+
+    def __init__(self, step: ShardedStep):
+        if step.comm.backend != "nccl":
+            raise RuntimeError(
+                f"GraphedShardedStep captures under NCCL; this process "
+                f"group's backend is {step.comm.backend}, whose collectives "
+                "a CUDA graph cannot hold: run ShardedStep eagerly")
+        self.step = step
+        self.comm = step.comm
+        self.graph = None
+        self.capture_seconds = 0.0
+        self.capture_bytes = {}
+
+    def capture(self, local: SimState):
+        """Capture the step for local's capacity (freeing the last one)."""
+        self.graph = None
+        # the warm-up step is thrown away: its solves do not count
+        saved = linsolve.STATS.snapshot()
+        before = collections.Counter(self.comm.captured)
+        g = graphs.StepGraph(self.step).capture(local)
+        linsolve.STATS.restore(saved)
+        g.capacity = local.particles.n_capacity
+        self.capture_bytes = dict(collections.Counter(self.comm.captured)
+                                  - before)
+        self.graph = g
+        self.capture_seconds += g.capture_seconds
+        return g
+
+    @property
+    def nodes(self) -> dict:
+        return dict(self.graph.nodes)
+
+    def __call__(self, local: SimState) -> SimState:
+        if self.graph is None or \
+                self.graph.capacity != local.particles.n_capacity:
+            self.capture(local)
+        return self.graph.replay(local)
+
+
 # the DEM tables and the fluid fields whose bytes run_steps reports per
 # rank
 TABLES = ("nbr_idx", "shear", "wall_shear", "pos")
@@ -168,8 +234,43 @@ def check_replicas(particles, comm) -> None:
                            + " part")
 
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _counting_syncs(fn):
+    """(fn(), the host syncs torch's sync debug mode saw in it)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    return out, sum(SYNC_WARNING in str(w.message) for w in seen)
+
+
+def _parted(a, b) -> list:
+    """The fields of two states of one structure that are not equal bit
+    for bit, by path."""
+    return [n for (n, x), (_, y) in zip(_paths(a), _paths(b))
+            if not torch.equal(_as_bits(x), _as_bits(y))]
+
+
+def _paths(tree, prefix=""):
+    """(path, tensor) of each tensor of a tree of NamedTuples."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if isinstance(tree, tuple):
+        names = tree._fields if hasattr(tree, "_fields") \
+            else [str(i) for i in range(len(tree))]
+        return [p for k, v in zip(names, tree)
+                for p in _paths(v, f"{prefix}.{k}" if prefix else k)]
+    return []
+
+
 def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
-              keep=None) -> dict:
+              keep=None, graphed: bool = False) -> dict:
     """A rank's job (parallel/launch.run_ranks): the whole state state_np
     (a bridge.sim_state_to_numpy dict) cut to this rank's block, then
     n_steps steps of ShardedStep, the ranks' whole arrays held equal
@@ -179,7 +280,16 @@ def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
     milliseconds (synchronized on a card) and the bytes its collectives
     returned by kind, the kernel's launches in the steps by the rows
     each computed, and (rank 0) the whole state gathered after each step
-    in `keep` (all when None), by step number."""
+    in `keep` (all when None), by step number.
+
+    graphed=True (NCCL only: GraphedShardedStep raises otherwise): the
+    step captured first, then n_steps replays; the eager ShardedStep
+    steps from the same state beside them, the oracle. Adds the
+    capture's seconds, conditional nodes, captured bytes and kernel
+    launches (the warm-up's), per replay the host syncs, the fields that
+    part from the eager step's (none, when all is well) and the eager
+    step's milliseconds; the bytes and launches per step are then the
+    replays', counted on the device."""
     local = shard_state(bridge.sim_state_from_numpy(state_np,
                                                     device=mesh.device),
                         mesh)
@@ -198,16 +308,39 @@ def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
            "tags_before": local.particles.tag.cpu().numpy(),
            "ms": [], "comm": [], "states": {},
            "launch_sizes": collections.Counter()}
+    if graphed:
+        runner = GraphedShardedStep(step)
+        eager = graphs.tree_map(torch.clone, local)
+        sizes0 = fused.launch_sizes()
+        runner.capture(local)
+        out.update(capture_s=runner.capture_seconds, nodes=runner.nodes,
+                   capture_bytes=runner.capture_bytes,
+                   capture_launches=sum((fused.launch_sizes()
+                                         - sizes0).values()),
+                   syncs=[], parted=[], eager_ms=[])
+    counted = step.comm.replayed_bytes if graphed \
+        else (lambda: dict(step.comm.bytes))
     for i in range(1, n_steps + 1):
-        bytes0, sizes0 = dict(step.comm.bytes), fused.launch_sizes()
+        bytes0, sizes0 = counted(), fused.launch_sizes()
         sync()
         t0 = time.perf_counter()
-        local = step(local)
+        if graphed:
+            local, n_syncs = _counting_syncs(lambda: runner(local))
+            out["syncs"].append(n_syncs)
+        else:
+            local = step(local)
         sync()
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["launch_sizes"] += fused.launch_sizes() - sizes0
         out["comm"].append({k: v - bytes0.get(k, 0)
-                            for k, v in step.comm.bytes.items()})
+                            for k, v in counted().items()})
+        if graphed:
+            sync()
+            t0 = time.perf_counter()
+            eager = step(eager)
+            sync()
+            out["eager_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["parted"].append(_parted(eager, local))
         check_replicas(local.particles, Comm())
         if keep is None or i in keep:
             whole = gather_state(local, mesh, step.comm)
@@ -220,6 +353,12 @@ def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
 
 
 def run_jobs(mesh: Mesh, jobs) -> list:
-    """run_steps(mesh, *job) for each job (cfg, state_np, n_steps[,
-    keep]) in turn, in one spawn of the ranks: their results in order."""
-    return [run_steps(mesh, *job) for job in jobs]
+    """run_steps(mesh, *job) for each job (cfg, state_np, n_steps[, keep[,
+    graphed]]) in turn, in one spawn of the ranks: their results in
+    order."""
+    out = []
+    for job in jobs:
+        out.append(run_steps(mesh, *job))
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
