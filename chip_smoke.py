@@ -188,13 +188,18 @@ which passes or exits nonzero:
    path at the channel's shape (f32, tests/torch_port_slabs.py) against
    the whole grid's call, naming any operation that parts on the card;
    (g) which collectives a CUDA graph takes: those the split step
-   calls (all_gather_into_tensor, all_reduce sum and max, a fixed-size
-   all_to_all_single, broadcast), each called straight through
-   torch.distributed on one NCCL rank, in a plain capture (global and
-   thread-local error modes) and in the body of an IF and of a WHILE
-   node (graphs.cond, graphs.while_loop), each replay held against the
-   eager call bit for bit; the phase fails, printing the error, if one
-   is refused; (h) the split step captured as one CUDA graph
+   calls, with its own split patterns (parallel/probe.py: the halo's
+   all_gather_into_tensor of every rank's end planes, the
+   particle-to-grid exchange's equal-block all_to_all_single of values
+   and of int32 cells, all_gather_into_tensor, all_reduce sum and max,
+   a broadcast from the last rank), each called straight through
+   torch.distributed on one
+   NCCL rank, eagerly (against its value computed on the host), in a
+   plain capture (global and thread-local error modes) and in the body
+   of an IF and of a WHILE node (graphs.cond, graphs.while_loop), each
+   replay held against the eager call bit for bit; the phase fails,
+   printing the error, if one is refused; (h) the split step captured
+   as one CUDA graph
    (parallel/step.GraphedShardedStep) on one NCCL rank, on the bench
    bed, the channel and every configuration of (f), SHARDED_STEPS
    replays each: bit for bit with the eager ShardedStep stepped beside
@@ -204,7 +209,11 @@ which passes or exits nonzero:
    whole launch and the plain version; capture seconds, conditional
    nodes, ms per replayed step beside the eager ShardedStep's and the
    one-process GraphedStep's on the same state, the collective bytes a
-   replay (counted on the device) and those the graph holds;
+   replay (counted on the device) and those the graph holds; (i) where
+   several cards are visible, the probe of (g) at min(cards, 4) NCCL
+   ranks, one a card (the exchanges between peers), and the bench bed's
+   GraphedShardedStep on those ranks, held as (h) holds one rank's; on
+   one card a line saying that no second card ran;
    each phase's seconds in the last line before the output;
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, graph (from each case's
@@ -2639,6 +2648,7 @@ SHARDED_REBUILD_STEPS = 1  # of the bench bed rebuilt at every substep
 SHARDED_RANKS = 2
 SHARDED_TOL = 1e-5        # of each field's scale, where not bit for bit
 SHARDED_TIMEOUT = 600     # seconds a spawn of ranks may take
+SHARDED_CARDS = 4         # the most NCCL ranks (i) spreads over, one a card
 SPLIT_LATTICE = dict(n_particles=32768, nx=32, ny=16, nz=32)  # cut in depth
 SPLIT_DNS_ROWS = 8192
 SPLIT_DELETE_ROWS = 4     # active rows placed in jetFlow's delete box
@@ -2934,6 +2944,76 @@ def graphed_ms(cfg, state, n_steps):
     return cap, ms
 
 
+def probe_table(n, dev, smi):
+    """parallel/probe.probe_ranks at n NCCL ranks (on `dev` at one rank):
+    printed; fails on any case not "ok" (refused, parted or stalled)."""
+    from sedifoam_tpu_torch.parallel.probe import probe_ranks
+    t0 = time.perf_counter()
+    probe = probe_ranks(n, backend="nccl", device=dev if n == 1 else None,
+                        log=say)
+    table = probe["results"]
+    refused = {f"{c} in {p}": r for c, d in table.items()
+               for p, r in d.items() if r != "ok"}
+    say(f"sharded [capture probe, {n} NCCL rank{'s' if n > 1 else ''}, "
+        f"NCCL {probe['nccl']}, {time.perf_counter() - t0:.1f} s]: "
+        + "; ".join(f"{c}: " + ", ".join(
+            f"{p} {'ok' if r == 'ok' else 'REFUSED'}" for p, r in d.items())
+            for c, d in table.items()) + f" ({smi})")
+    if refused:
+        fail(f"sharded: at {n} NCCL ranks a collective of the split step is "
+             "refused, parts or stalls: " + "; ".join(
+                 f"{w}: {e}" for w, e in refused.items()))
+    return {"nccl": probe["nccl"], "ranks": n,
+            "ok": sorted(f"{c} in {p}" for c, d in table.items()
+                         for p in d)}
+
+
+def cards_run(n, cfg, snp, refs, one_graphed, held, smi):
+    """phase_sharded (i): the capture probe at n NCCL ranks, one a card,
+    then the bench bed's GraphedShardedStep on them, SHARDED_STEPS
+    replays held as (h) holds one rank's (`held`: bit for bit with the
+    one-process states `refs`); ms per replay a rank beside the
+    one-process GraphedStep's. Returns held's record."""
+    from sedifoam_tpu_torch.parallel.launch import run_ranks
+    from sedifoam_tpu_torch.parallel.step import run_steps
+    probe = probe_table(n, None, smi)
+    t0 = time.perf_counter()
+    try:
+        res = run_ranks(run_steps, n, args=(cfg, snp, SHARDED_STEPS, None,
+                                            True), backend="nccl",
+                        timeout=SHARDED_TIMEOUT)
+    except Exception as e:      # noqa: BLE001 - the phase fails on it
+        fail(f"sharded (i): the bench bed graphed on {n} NCCL ranks: "
+             f"{type(e).__name__}: {e}")
+    say(f"sharded (i): {n} NCCL ranks, one a card, captured and replayed "
+        f"the bench bed in {time.perf_counter() - t0:.1f} s of wall time, "
+        "process start-up included")
+    cap_s, one_ms = one_graphed
+    for r in res:
+        parted = [(i, f) for i, fs in enumerate(r["parted"], 1) for f in fs]
+        say(f"sharded [bench bed, graphed, {n} NCCL ranks] rank {r['rank']} "
+            f"on {r['device']}: capture {r['capture_s']:.2f} s; ms per "
+            "replayed step " + ", ".join(f"{m:.2f}" for m in r["ms"])
+            + " (eager ShardedStep " + ", ".join(f"{m:.1f}"
+                                                 for m in r["eager_ms"])
+            + "; one process GraphedStep " + ", ".join(f"{m:.2f}"
+                                                       for m in one_ms)
+            + f"); host syncs a replay {r['syncs']}; bytes a replay "
+            f"{json.dumps(r['comm'])}; fields parted from the eager "
+            f"ShardedStep: {parted or 'none'} ({smi})")
+        if parted:
+            fail(f"sharded (i): rank {r['rank']}'s replays part from the "
+                 f"eager ShardedStep in {parted}")
+        if any(r["syncs"]):
+            fail(f"sharded (i): host syncs inside a replay on rank "
+                 f"{r['rank']}: {r['syncs']}")
+    got = held(f"bench bed graphed nccl x{n}", res, refs, bitwise=True)
+    got.update(probe=probe, capture_s=[r["capture_s"] for r in res],
+               syncs=[r["syncs"] for r in res],
+               one_process_graphed_ms=one_ms)
+    return got
+
+
 def phase_sharded(dev, k, smi):
     """The coupled step split over ranks (sedifoam_tpu_torch/parallel/):
     (a) the kernel on row ranges of the bench table: the two halves equal
@@ -2965,14 +3045,17 @@ def phase_sharded(dev, k, smi):
     bounds, host time and plain version; (g) the capture probe
     (parallel/probe.py) on one NCCL rank: whether a plain capture and
     the bodies of IF and WHILE nodes take each collective of the split
-    step; (h) GraphedShardedStep on one NCCL rank, on the
+    step, with the step's split patterns, eagerly too (probe_table);
+    (h) GraphedShardedStep on one NCCL rank, on the
     bench bed, the channel and every configuration of (f) in one spawn:
     each replay bit for bit with the eager ShardedStep on the rank and
     with CoupledStep here, 0 host syncs, the kernel launched inside the
     replays as one process launches it, its halves of the last replayed
     table held as in (f); ms per replay beside the one-process
-    GraphedStep's (graphed_ms). Returns the launches of the ranks (the
-    main path of the split step)."""
+    GraphedStep's (graphed_ms); (i) where several cards are visible,
+    the probe and the bench bed's replays over min(cards, SHARDED_CARDS)
+    NCCL ranks, one a card (cards_run); on one card, one line. Returns
+    the launches of the ranks (the main path of the split step)."""
     import numpy as np
     import torch
     from sedifoam_tpu_torch import bench_case, bridge, cases
@@ -2981,7 +3064,6 @@ def phase_sharded(dev, k, smi):
     from sedifoam_tpu_torch.io.case import load_case
     from sedifoam_tpu_torch.parallel.launch import run_ranks
     from sedifoam_tpu_torch.parallel.mesh import particle_axes
-    from sedifoam_tpu_torch.parallel.probe import probe_capture
     from sedifoam_tpu_torch.parallel.step import FIELDS, TABLES, run_jobs, \
         run_steps
     from sedifoam_tpu_torch.solver import CoupledStep
@@ -3262,27 +3344,11 @@ def phase_sharded(dev, k, smi):
         out["configs"][label] = got
 
     # (g) which collectives of the split step a CUDA graph takes, and
-    # where: each, called straight through torch.distributed on one NCCL
-    # rank, in a plain capture (both error modes) and in the bodies of an
-    # IF and a WHILE node
-    t0 = time.perf_counter()
-    probe = run_ranks(probe_capture, 1, backend="nccl", device=dev,
-                      timeout=SHARDED_TIMEOUT)[0]
-    table = probe["results"]
-    refused = {f"{c} in {p}": r for c, d in table.items()
-               for p, r in d.items() if r != "ok"}
-    say(f"sharded [capture probe, one NCCL rank, NCCL {probe['nccl']}, "
-        f"{time.perf_counter() - t0:.1f} s]: " + "; ".join(
-            f"{c}: " + ", ".join(f"{p} {'ok' if r == 'ok' else 'REFUSED'}"
-                                 for p, r in d.items())
-            for c, d in table.items()) + f" ({smi})")
-    if refused:
-        fail("sharded: a collective of the split step is refused in a "
-             "capture: " + "; ".join(f"{w}: {e}" for w, e in
-                                     refused.items()))
-    out["probe"] = {"nccl": probe["nccl"],
-                    "ok": sorted(f"{c} in {p}" for c, d in table.items()
-                                 for p in d)}
+    # where: each, with the step's own split pattern, called straight
+    # through torch.distributed on one NCCL rank, eagerly, in a plain
+    # capture (both error modes) and in the bodies of an IF and a WHILE
+    # node
+    out["probe"] = probe_table(1, dev, smi)
 
     # (h) the split step captured as one CUDA graph (GraphedShardedStep) on
     # one NCCL rank: the bench bed, the channel and every configuration
@@ -3338,8 +3404,19 @@ def phase_sharded(dev, k, smi):
             launch_restore(counted)
             del last
         out["graphed"][label] = got
+    # (i) on several cards: the probe and the bench bed graphed over
+    # min(cards, SHARDED_CARDS) NCCL ranks, one a card
+    cards = torch.cuda.device_count()
+    out["cards"] = None
+    if cards < 2:
+        say(f"sharded (i): {cards} card visible: the split step ran on no "
+            "second card")
+    else:
+        out["cards"] = cards_run(min(cards, SHARDED_CARDS), cfg, snp, refs,
+                                 one_graphed["bench bed"], held, smi)
     paths = [out[key] for key in ("gloo", "nccl", "rebuilt", "channel")] \
-        + list(out["configs"].values()) + list(out["graphed"].values())
+        + list(out["configs"].values()) + list(out["graphed"].values()) \
+        + ([out["cards"]] if out["cards"] else [])
     out["launches"] = sum(path["launches"] for path in paths)
     out["ran_at"] = [{"N": path["N"], "rows": rows, "K": path["K"],
                       "launches": c, "path": "sharded"}

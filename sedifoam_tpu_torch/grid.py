@@ -457,7 +457,15 @@ class SlabGrid(Grid):
         return self.whole.locate(pos)
 
     def plane_sums(self, x, x_faces: bool = False):
-        p = torch.sum(x.contiguous(), dim=(-2, -1))
+        # each plane summed as the whole grid's call sums it: on the card
+        # a reduction's order within each sum depends on how many sums it
+        # makes, so the slab's planes are summed in a tensor of the whole
+        # grid's planes, the rest zeros (Grid.plane_sums)
+        planes = x.shape[-3]
+        whole = self.whole_nx + (1 if x_faces else 0)
+        if planes != whole:
+            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, whole - planes))
+        p = torch.sum(x.contiguous(), dim=(-2, -1)).narrow(-1, 0, planes)
         if self.comm.ranks == 1:
             return p
         parts = self.comm.gather_planes(p)

@@ -9,8 +9,8 @@ neighbor build, so that every rank takes the same branch of the rebuild
 test (`all_reduce_max`).
 
 The fluid's, where it is split along grid-x (grid.SlabGrid): the ghost
-planes of the stencils (`halo`, each slab's end planes to its two
-neighbours, wrapping cyclically), the per-plane partial sums of every
+planes of the stencils (`halo`: every rank's two end planes gathered,
+each rank taking its two neighbours', wrapping cyclically), the per-plane partial sums of every
 global reduction (`gather_planes`: each rank then sums all planes in x
 order alike), the whole field from the slabs (`all_gather_rows`: the
 FastDiag solves and the grid-to-particle gathers read it), the value of
@@ -21,16 +21,22 @@ masks the rows bound elsewhere).
 
 Every call's shapes are fixed by the state's, never by its data, and
 no call reads a tensor on the host: under NCCL the split step captures
-as one CUDA graph with its collectives inside (parallel/step.py). Under
-NCCL only one rank has been run (one card holds one rank of a
-communicator): there `halo` and `broadcast_cell` take their one-rank
-short cuts, so their exchanges between NCCL ranks have not been run.
+as one CUDA graph with its collectives inside (parallel/step.py). No
+call is point-to-point: NCCL carries sends and receives, and an
+all_to_all_single of uneven splits, as point-to-point operations, which
+the body of a CUDA graph's conditional node refused at one rank under
+NCCL's default settings (parallel/probe.py), and the solvers' loops,
+which hold halos, are such bodies. Every call
+has run between NCCL ranks, one a card, eagerly and captured, at 2 and
+4 ranks (parallel/probe.py; the split step in
+tests/torch_port_measure_split_graph.py).
 
 `Comm.bytes` counts, by kind, the bytes of the tensors each call
 returns on this rank: the convention of the JAX package's dry run
 (`__graft_entry__._collective_bytes` sums the result shapes of the
 collectives in the compiled program), under its names:
-``collective-permute`` (halos), ``all-to-all``, ``all-gather``,
+``collective-permute`` (halos, at the bytes of the all-gather that
+carries them), ``all-to-all``, ``all-gather``,
 ``all-reduce`` and ``collective-broadcast``. Nothing is counted where
 nothing leaves the rank (one rank; a rank's own block of an
 all-to-all). Under a capture the counts go to `device_bytes`, on the
@@ -38,9 +44,9 @@ device, which each replay adds to (`replayed_bytes`).
 
 Over gloo the tensors may lie on the CPU or on a card: gloo carries a
 CUDA tensor through host memory itself in all_gather and all_reduce
-and into one tensor (on the H100, torch 2.11); the all-to-alls (the
-halos' and the particle rows') and the broadcast are staged through
-host memory here. NCCL takes them on the card.
+and into one tensor (on the H100, torch 2.11); the particle rows'
+all-to-all and the broadcast are staged through host memory here. NCCL
+takes them on the card.
 """
 
 from __future__ import annotations
@@ -51,6 +57,30 @@ import torch
 import torch.distributed as dist
 
 from sedifoam_tpu_torch.graphs import capturing
+
+# the event recorded after the last replay of a graph holding this
+# process's collectives (parallel/step.GraphedShardedStep), until an
+# eager collective waited for it
+_REPLAY = []
+
+
+def replay_launched():
+    """Note that a graph holding collectives was launched on the current
+    stream: the next eager collective waits for it to end. NCCL runs
+    without its support for mixing graphs and eager calls on one
+    communicator (parallel/launch.NCCL_ENV), which leaves an eager call
+    while a replay runs undefined, whatever the streams."""
+    ev = torch.cuda.Event()
+    ev.record()
+    _REPLAY[:] = [ev]
+
+
+def _after_replays():
+    """Before an eager collective: wait (on the host) for the last
+    replay to end."""
+    if _REPLAY and not capturing():
+        _REPLAY.pop().synchronize()
+
 
 # the kinds of collective `Comm.bytes` counts, under the JAX package's
 # names
@@ -103,6 +133,7 @@ class Comm:
         tensor."""
         out = torch.empty((self.ranks * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
+        _after_replays()
         dist.all_gather_into_tensor(out, src)
         self._count("all-gather", out.numel() * out.element_size(),
                     src.device)
@@ -121,6 +152,7 @@ class Comm:
 
     def _all_reduce(self, x, op):
         y = x.clone()
+        _after_replays()
         dist.all_reduce(y, op=op)
         self._count("all-reduce", y.numel() * y.element_size(), y.device)
         return y
@@ -153,6 +185,7 @@ class Comm:
         buf = local.reshape(1).clone() if self.rank == owner else \
             torch.empty(1, dtype=like.dtype, device=like.device)
         host = self._staged(buf)
+        _after_replays()
         dist.broadcast(host, src=owner)
         self._count("collective-broadcast", host.element_size(),
                     like.device)
@@ -164,38 +197,24 @@ class Comm:
         first plane of rank + 1), ranks wrapping cyclically (one rank:
         its own last and first planes).
 
-        One all-to-all of fixed sizes, not point-to-point sends: NCCL's
-        batched sends and receives run on a stream of its own, which a
-        CUDA graph's conditional-node body cannot capture (the probe of
-        chip_smoke.py's phase_sharded), and the halos of the solvers'
-        loops lie in such bodies. Each rank sends its first plane to rank
-        - 1 and its last to rank + 1, the first before the last where
-        those are one rank (two ranks), and so receives from rank + 1 its
-        first plane (hi) before, from rank - 1, its last (lo)."""
+        One all_gather_into_tensor of every rank's two end planes
+        (`halo_exchange`), not point-to-point: NCCL carries an
+        all_to_all_single of uneven splits as point-to-point sends and
+        receives, which the body of a CUDA graph's conditional node
+        refused at one rank under NCCL's default settings
+        (parallel/probe.py), and the halos of the solvers' loops lie in
+        such bodies. Counted under
+        collective-permute (the halo's kind in the JAX package), at the
+        all-gather's bytes: 2 x ranks planes."""
         first = x.narrow(dim, 0, 1)
         last = x.narrow(dim, x.shape[dim] - 1, 1)
         if self.ranks == 1:
             return last, first
-        down, up = (self.rank - 1) % self.ranks, (self.rank + 1) % self.ranks
-        plane = first.numel()
-        sends, sizes, recvs = [], [], []
-        for r in range(self.ranks):
-            part = ([first] if r == down else []) + ([last] if r == up
-                                                     else [])
-            sends += [q.reshape(-1) for q in part]
-            sizes.append(plane * len(part))
-            recvs.append(plane * ((r == up) + (r == down)))
-        src = self._staged(torch.cat(sends))
-        out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, recvs, sizes)
-        self._count("collective-permute", out.numel() * out.element_size(),
-                    x.device)
-        # from rank up its first plane, then from rank down its last; at
-        # two ranks both from the one other rank, in that order
-        got = torch.split(out.to(x.device), recvs)
-        hi = got[up][:plane]
-        lo = got[down][-plane:]
-        return lo.reshape(first.shape), hi.reshape(first.shape)
+        _after_replays()
+        lo, hi = halo_exchange(first, last, self.rank, self.ranks)
+        self._count("collective-permute", 2 * self.ranks * first.numel()
+                    * first.element_size(), x.device)
+        return lo, hi
 
     def all_to_all_blocks(self, blocks):
         """blocks[r] goes to rank r (blocks: (ranks, ...), one shape on
@@ -205,6 +224,7 @@ class Comm:
             return blocks
         src = self._staged(blocks.contiguous())
         out = torch.empty_like(src)
+        _after_replays()
         dist.all_to_all_single(out, src)
         self._count("all-to-all", (out.numel() - out[0].numel())
                     * out.element_size(), blocks.device)
@@ -212,3 +232,19 @@ class Comm:
 
     def total_bytes(self) -> int:
         return sum(self.bytes.values())
+
+
+def halo_exchange(first, last, rank: int, ranks: int):
+    """(lo, hi) of parallel/comm.Comm.halo from this rank's end planes
+    (two tensors of one shape): one all_gather_into_tensor of every
+    rank's first and last plane, from which lo is rank - 1's last plane
+    and hi rank + 1's first (a copy: the values are bit for bit the
+    neighbours'). The caller counts the bytes."""
+    plane = first.numel()
+    src = torch.cat([first.reshape(-1), last.reshape(-1)])
+    out = torch.empty(ranks * 2 * plane, dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src)
+    ends = out.view(ranks, 2, plane)
+    lo = ends[(rank - 1) % ranks, 1]
+    hi = ends[(rank + 1) % ranks, 0]
+    return lo.reshape(first.shape), hi.reshape(first.shape)

@@ -54,16 +54,19 @@ the step as one CUDA graph per rank with its collectives inside, and
 replays it with one launch a step, as solver.GraphedStep does the
 one-process step (the JAX package jits the sharded step alike). Gloo
 cannot be captured: over gloo the split step runs eagerly, its
-decisions read on the host. The capture has been run at one NCCL rank
-only (one card holds one rank of a communicator), where parallel/comm's
-halos and broadcasts take their one-rank short cuts: the exchanges
-between NCCL ranks, eager or captured, have not been run.
+decisions read on the host. Under NCCL, one rank a card, the step has
+run eagerly and captured on 1, 2 and 4 ranks, every field bit for bit
+with one process (tests/torch_port_measure_split_graph.py, chip_smoke.py
+phase_sharded); its ranks run with NCCL's graph-mixing support off
+(parallel/launch.NCCL_ENV), without which no collective can be captured
+in a conditional node's body at two ranks or more.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 import warnings
 
@@ -72,7 +75,8 @@ from torch import nn
 
 from sedifoam_tpu_torch import bridge, graphs, linsolve
 from sedifoam_tpu_torch.dem import fused
-from sedifoam_tpu_torch.parallel.comm import Comm
+from sedifoam_tpu_torch.parallel.comm import Comm, replay_launched
+from sedifoam_tpu_torch.parallel.launch import NCCL_ENV
 from sedifoam_tpu_torch.parallel.mesh import Mesh, Shard, fluid_layout, \
     gather_state, particle_axes, shard_state
 from sedifoam_tpu_torch.solver import CoupledStep, SimConfig, SimState, \
@@ -143,13 +147,17 @@ class GraphedShardedStep:
     collectives inside (graphs.StepGraph), and replayed once per call:
     step(local) -> this rank's state after one coupled step, the graph's
     own buffers, valid until the next call (a call on them steps them
-    without a host copy). Every rank calls it at once. One capture per
+    without a host copy). Every rank calls it at once. An eager
+    collective of parallel/comm.Comm after a call waits for the replay
+    to end (comm.replay_launched); one made otherwise must follow a
+    synchronize. One capture per
     particle capacity, as solver.GraphedStep; the capture's warm-up step
     (graphs.warming) runs every branch, so every collective the graph
     holds has been called once before it. A replay makes no host sync.
 
     Raises unless the process group is NCCL's (gloo runs the split step
-    eagerly: ShardedStep), and when a capture fails. `capture_bytes`:
+    eagerly: ShardedStep) with parallel/launch.NCCL_ENV set, and when a
+    capture fails. `capture_bytes`:
     the bytes by kind of every collective the graph holds, each body's
     once (what a replay moves when every branch is taken once and every
     loop runs once); a replay's own bytes are counted on the device
@@ -161,6 +169,14 @@ class GraphedShardedStep:
                 f"GraphedShardedStep captures under NCCL; this process "
                 f"group's backend is {step.comm.backend}, whose collectives "
                 "a CUDA graph cannot hold: run ShardedStep eagerly")
+        unset = {k: v for k, v in NCCL_ENV.items()
+                 if os.environ.get(k) != v}
+        if unset:
+            raise RuntimeError(
+                f"GraphedShardedStep: NCCL needs {unset} to capture the "
+                "step's collectives in conditional nodes: call "
+                "parallel.launch.nccl_environment() before "
+                "init_process_group (run_ranks does)")
         self.step = step
         self.comm = step.comm
         self.graph = None
@@ -190,7 +206,9 @@ class GraphedShardedStep:
         if self.graph is None or \
                 self.graph.capacity != local.particles.n_capacity:
             self.capture(local)
-        return self.graph.replay(local)
+        out = self.graph.replay(local)
+        replay_launched()
+        return out
 
 
 # the DEM tables and the fluid fields whose bytes run_steps reports per
@@ -277,7 +295,8 @@ def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
     after each (check_replicas). Returns, for this rank: the bytes of
     its own TABLES and FIELDS, the fluid's layout ("slab" or "whole"),
     the tags of its rows before and after, per step the wall
-    milliseconds (synchronized on a card) and the bytes its collectives
+    milliseconds (the ranks started together, synchronized on a card)
+    and the bytes its collectives
     returned by kind, the kernel's launches in the steps by the rows
     each computed, and (rank 0) the whole state gathered after each step
     in `keep` (all when None), by step number.
@@ -320,8 +339,13 @@ def run_steps(mesh: Mesh, cfg: SimConfig, state_np: dict, n_steps: int,
                    syncs=[], parted=[], eager_ms=[])
     counted = step.comm.replayed_bytes if graphed \
         else (lambda: dict(step.comm.bytes))
+    # the ranks start each timed step together: rank 0 gathers the state
+    # between steps, and another rank would time its wait for it
+    start = Comm()
+    flag = torch.zeros(1, device=mesh.device)
     for i in range(1, n_steps + 1):
         bytes0, sizes0 = counted(), fused.launch_sizes()
+        start.all_reduce_max(flag)
         sync()
         t0 = time.perf_counter()
         if graphed:

@@ -36,6 +36,7 @@ from sedifoam_tpu_torch.dem import inject as trng  # noqa: E402
 from sedifoam_tpu_torch.fluid import bodyforce as tbf  # noqa: E402
 from sedifoam_tpu_torch.fluid import state as tfstate  # noqa: E402
 from sedifoam_tpu_torch.fluid import step as tstep  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import (assert_tree_close, fluid_to_torch,  # noqa: E402
                              rel_err)
 

@@ -40,6 +40,7 @@ from sedifoam_tpu_torch.io import foamdict as tfd  # noqa: E402
 from sedifoam_tpu_torch.io import foamwrite as tfw  # noqa: E402
 from sedifoam_tpu_torch.io import lammps as tlmp  # noqa: E402
 from torch_port_cases import port_config  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import assert_tree_close  # noqa: E402
 
 COARSE = dict(counts=(14, 13, 6), layers=2)

@@ -43,6 +43,7 @@ from sedifoam_tpu_torch import solver as tsolver  # noqa: E402
 from sedifoam_tpu_torch.dem import fused  # noqa: E402
 from sedifoam_tpu_torch.io.case import load_case as tload  # noqa: E402
 from sedifoam_tpu_torch.runtime.runner import Simulation  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import assert_tree_close, rel_err  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -49,6 +49,7 @@ from sedifoam_tpu_torch import solver as tsolver  # noqa: E402
 from sedifoam_tpu_torch.fluid import state as tfstate  # noqa: E402
 from sedifoam_tpu_torch.io.case import load_case as tload  # noqa: E402
 from sedifoam_tpu_torch.runtime import checkpoint as tckpt  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import assert_tree_close, rel_err  # noqa: E402
 
 ILL_CONDITIONED = ("Ua", "Ua_old", "phia", "phia_old", "DDtUa")

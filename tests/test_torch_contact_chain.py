@@ -26,6 +26,7 @@ from sedifoam_tpu_torch import config as tcfg  # noqa: E402
 from sedifoam_tpu_torch.dem import fused as tfused  # noqa: E402
 from sedifoam_tpu_torch.dem import integrate as tint  # noqa: E402
 from sedifoam_tpu_torch.dem.state import make_particles as tmake  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import particles_to_torch, rel_err  # noqa: E402
 
 BOX = (0.0, 0.0, 0.0), (8e-3, 16e-3, 8e-3)

@@ -32,6 +32,7 @@ from sedifoam_tpu_torch.coupling import drag as tdrag  # noqa: E402
 from sedifoam_tpu_torch.coupling import forces as tforces  # noqa: E402
 from sedifoam_tpu_torch.coupling import smoothing as tsmooth  # noqa: E402
 from sedifoam_tpu_torch.coupling import transfer as ttr  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import assert_tree_close, rel_err  # noqa: E402
 
 TOL = 1e-10

@@ -27,6 +27,7 @@ from sedifoam_tpu_torch.dem import forcelaws as tfl  # noqa: E402
 from sedifoam_tpu_torch.dem import integrate as tint  # noqa: E402
 from sedifoam_tpu_torch.dem import neighbor as tnb  # noqa: E402
 from sedifoam_tpu_torch.dem import walls as twalls  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import (particles_to_torch, rel_err,  # noqa: E402
                              assert_tree_close)
 from sedifoam_tpu_torch import bridge  # noqa: E402

@@ -44,6 +44,7 @@ from sedifoam_tpu_torch.dem.state import make_particles as tmake  # noqa: E402
 from sedifoam_tpu_torch.runtime.runner import Simulation  # noqa: E402
 from test_golden_xiaocase3 import make_xiaocase3  # noqa: E402
 from torch_port_cases import f64  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import (  # noqa: E402
     assert_tree_close, particles_to_torch, rel_err)
 

@@ -41,6 +41,7 @@ from sedifoam_tpu_torch.dem import cohesion as tcoh  # noqa: E402
 from sedifoam_tpu_torch.dem import integrate as tint  # noqa: E402
 from sedifoam_tpu_torch.dem import lubrication as tlub  # noqa: E402
 from sedifoam_tpu_torch.dem import observables as tobs  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import (assert_tree_close,  # noqa: E402
                              particles_to_torch)
 

@@ -41,6 +41,7 @@ from sedifoam_tpu_torch import ops as tops  # noqa: E402
 from sedifoam_tpu_torch.fluid import piso as tpiso  # noqa: E402
 from sedifoam_tpu_torch.fluid import pprecond as tpp  # noqa: E402
 from sedifoam_tpu_torch.fluid import step as tstep  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import fluid_to_torch, rel_err  # noqa: E402
 
 TOL = 1e-10

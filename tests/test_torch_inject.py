@@ -28,6 +28,7 @@ from sedifoam_tpu_torch import bridge  # noqa: E402
 from sedifoam_tpu_torch.coupling import cloud as tcloud  # noqa: E402
 from sedifoam_tpu_torch.dem import inject as tinj  # noqa: E402
 from torch_port_cases import f64, port_config, window_case  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import assert_tree_close, particles_to_torch  # noqa: E402
 
 KEYS = [0, 1, 42, 2 ** 31 + 7, 2 ** 32 - 1]

@@ -24,9 +24,9 @@ graphs.while_loop. The cases:
 - clumps: tests/test_torch_parallel_dem.py's 128 rigid dimers on the
   binned table.
 
-For each, at 2 and 4 ranks: 2 steps under host_reads_forbidden() equal
+For each, at 2 and 4 ranks: a step under host_reads_forbidden() equals
 the port's one-process CoupledStep (one thread) bit for bit in every
-field, check_replicas holding after each; a warm-up step under
+field, check_replicas holding after it; a warm-up step under
 graphs.warming() equals a plain eager step bit for bit, and so do the
 Shard's gathered radius, mass, active (and mol) at its end (a rebuild
 branch not taken, run on a copy in the warm-up, once rebound them). The
@@ -65,7 +65,7 @@ from torch_port_util import few_threads  # noqa: E402,F401
 from test_torch_parallel_dem import build as dem_build  # noqa: E402
 
 CASES = ["sorted", "channel", "jetflow", "clumps"]
-STEPS = 2
+STEPS = 1
 JET = dict(counts=(12, 120, 12), column_cells=4, add_interval=1.2e-3,
            dem_dt=1e-5)
 JET_ROWS = 256

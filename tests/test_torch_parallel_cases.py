@@ -23,7 +23,7 @@ on 16 x 8 x 8 cells with the option of the JAX package's own test of it:
 
 For each: at 2 and 4 ranks the split step equals the port's one-process
 step (solver.CoupledStep, one thread) bit for bit in every field through
-3 steps, the fluid split along grid-x; the ranks' copies of the
+2 steps, the fluid split along grid-x; the ranks' copies of the
 countdown, the key and every array held whole stay equal
 (parallel/step.check_replicas, run by the rank job). The port's
 one-process step equals the JAX package's jitted coupled_step, on one

@@ -25,7 +25,7 @@ of the JAX package's own test of it:
 
 For each: at 2 and 4 ranks the split step equals the port's
 one-process step (solver.CoupledStep, one thread) bit for bit in every
-field through 3 steps, with the fluid split along grid-x; the ranks'
+field through 2 steps, with the fluid split along grid-x; the ranks'
 copies of the bodies and the lattice tables stay equal
 (parallel/step.check_replicas, run by the rank job). The port's
 one-process step equals the JAX package's jitted coupled_step after one

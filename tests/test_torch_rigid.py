@@ -28,6 +28,7 @@ from sedifoam_tpu_torch import config as tcfg  # noqa: E402
 from sedifoam_tpu_torch.dem import integrate as tint  # noqa: E402
 from sedifoam_tpu_torch.dem import rigid as trig  # noqa: E402
 from sedifoam_tpu_torch.dem.state import make_particles as tmake  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import (assert_tree_close,  # noqa: E402
                              particles_to_torch, rel_err)
 

@@ -50,6 +50,7 @@ from sedifoam_tpu_torch.runtime import window as twin  # noqa: E402
 from sedifoam_tpu_torch.runtime.probes import Probes as TProbes  # noqa: E402
 from sedifoam_tpu_torch.runtime.runner import Simulation  # noqa: E402
 from torch_port_cases import f64, port_config, window_case  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import assert_tree_close, rel_err  # noqa: E402
 
 SMALL = dict(n_particles=256, nx=8, ny=16, nz=8)

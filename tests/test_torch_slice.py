@@ -28,6 +28,7 @@ from sedifoam_tpu_torch import bench_case, bridge  # noqa: E402
 from sedifoam_tpu_torch import config as tcfg  # noqa: E402
 from sedifoam_tpu_torch import solver as tsolver  # noqa: E402
 from sedifoam_tpu import bc as jbc  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import assert_tree_close  # noqa: E402
 
 SMALL = dict(n_particles=256, nx=8, ny=16, nz=8)

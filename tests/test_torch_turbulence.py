@@ -39,6 +39,7 @@ from sedifoam_tpu_torch.config import FluidConfig as TFC  # noqa: E402
 from sedifoam_tpu_torch.config import TurbulenceConfig as TTC  # noqa: E402
 from sedifoam_tpu_torch.fluid import state as tstate  # noqa: E402
 from sedifoam_tpu_torch.fluid import turbulence as tturb  # noqa: E402
+from torch_port_util import few_threads  # noqa: E402,F401
 from torch_port_util import fluid_to_torch, rel_err  # noqa: E402
 
 SHAPE = (7, 9, 5)

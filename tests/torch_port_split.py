@@ -25,7 +25,7 @@ from torch_port_cases import port_config
 ge = importlib.import_module("__graft_entry__")
 
 RANKS = [2, 4]
-STEPS = 3
+STEPS = 2
 TIMEOUT = 300.0            # seconds a spawn of ranks may take
 # the tolerance of the port's one-process step against the JAX package's
 # jitted one (tests/test_torch_parallel.py's): p and vel
