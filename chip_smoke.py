@@ -163,7 +163,16 @@ which passes or exits nonzero:
    rebuilds; LATTICE_TOL); the channel loaded on both backends (f64,
    LATTICE_CHANNEL_STEPS graphed steps through Simulation, by tag); and
    run_case --backend lattice on xiaocase3;
-14c. sharded: the coupled step split over ranks (sedifoam_tpu_torch/
+14c. physics: the reference's physics gates on the port alone, on the
+   card: `python -m pytest --noconftest -q -m "cuda and not slow"
+   tests/test_torch_physics_*.py` in a subprocess (the DEM contacts,
+   the dense and binned neighbor tables, PISO, LES, graded meshes,
+   region BCs, drag; each binned case asserts that the kernel's launch
+   count grew across it), with the plugin tests/torch_port_launch_count
+   counting the kernel's launches in that process; prints the passes,
+   the seconds and the launches on one line; fails on a nonzero exit or
+   no pass;
+14d. sharded: the coupled step split over ranks (sedifoam_tpu_torch/
    parallel/): the kernel on each half of the bench table's rows (f32,
    f64) equal bit for bit to the whole launch and within 1e-5 / 1e-12
    of scale of its plain version on the same rows, a half's device time
@@ -237,6 +246,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2380,6 +2390,49 @@ def bench_module(backend):
     return rates, json.loads(lines[-1]), wall
 
 
+PHYSICS_TIMEOUT = 300     # seconds the physics phase's pytest may take
+
+
+def phase_physics():
+    """The card cases of tests/test_torch_physics_*.py that are not
+    `slow`, in a pytest subprocess (--noconftest: tests/conftest.py
+    imports JAX; the files import nothing of it). Returns {"passed",
+    "seconds", "launches"}: the kernel's launches counted in that
+    process by the plugin tests/torch_port_launch_count."""
+    import glob
+    files = sorted(glob.glob(os.path.join(REPO, "tests",
+                                          "test_torch_physics_*.py")))
+    if not files:
+        fail("physics: no tests/test_torch_physics_*.py in the checkout")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "launches.json")
+        env = dict(os.environ, CHAIN_LAUNCHES_OUT=out,
+                   PYTHONPATH=os.pathsep.join(
+                       [REPO, os.path.join(REPO, "tests")]))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-q",
+             "-p", "no:cacheprovider", "-p", "torch_port_launch_count",
+             "-m", "cuda and not slow", *files],
+            capture_output=True, text=True, env=env, cwd=REPO,
+            timeout=PHYSICS_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        tail = res.stdout.strip().splitlines()[-1:] or [""]
+        m = re.search(r"(\d+) passed", tail[0])
+        passed = int(m.group(1)) if m else 0
+        if res.returncode != 0 or passed == 0:
+            fail(f"physics: pytest exited {res.returncode} with {passed} "
+                 f"passed:\n{res.stdout[-4000:]}\n{res.stderr[-2000:]}")
+        with open(out) as f:
+            launches = json.load(f)["launches"]
+    if launches == 0:
+        fail("physics: the binned cases launched no kernel")
+    got = {"passed": passed, "seconds": round(seconds, 1),
+           "launches": launches}
+    say("physics: " + json.dumps(got))
+    return got
+
+
 def phase_lattice(dev):
     """The lattice DEM backend (dem/lattice.py) at the bench case's full
     width through the port's entry points, held against the binned
@@ -3593,6 +3646,8 @@ def main():
     mark("bench")
     lattice = phase_lattice(dev)
     mark("lattice")
+    phase_physics()
+    mark("physics")
     sharded = phase_sharded(dev, k, smi)
     mark("sharded")
     validate = phase_validate(dev)

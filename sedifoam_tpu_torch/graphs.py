@@ -309,12 +309,20 @@ def _read(pred) -> bool:
 def while_loop(cond_fn, body_fn, carry):
     """lax.while_loop: carry = body_fn(carry) while cond_fn(carry). Under
     capture one WHILE node, whose body is body_fn then cond_fn, on a copy
-    of the carry that the body updates in place."""
+    of the carry that the body updates in place. In a warm-up (see
+    `warming`) a body the loop ran no time runs once, on a copy, and is
+    thrown away."""
     if capturing():
         return _captured_while(cond_fn, body_fn, carry)
     read = _read if _emulating() else bool
+    ran = False
     while read(cond_fn(carry)):                         # host sync
         carry = body_fn(carry)
+        ran = True
+    if not ran and _stack("warm"):
+        # a warm-up runs the body the loop skipped once, on a copy, as a
+        # capture does (see `warming`)
+        cond_fn(body_fn(tree_map(torch.clone, carry)))
     return carry
 
 
@@ -336,10 +344,14 @@ def cond(pred, true_fn, carry):
 
 @contextlib.contextmanager
 def warming():
-    """An eager run in which every cond also runs its branch not taken
-    (on a copy): caches that a branch fills at first use (Grid.const,
-    device_vector, cuFFT plans, the kernels' launch parameters) are full
-    before a capture, where a host-to-device copy is illegal."""
+    """An eager run in which every cond also runs its branch not taken,
+    and every while_loop that ran its body no time runs it once (each on
+    a copy, thrown away): caches that a branch or a body fills at first
+    use (Grid.const, device_vector, cuFFT plans, cuBLAS's handle, the
+    kernels' launch parameters) are full before a capture, where a
+    host-to-device copy or a handle's creation is illegal. A solve that
+    starts converged (a pressure equation with a zero right-hand side)
+    runs no iteration eagerly, yet its body is captured all the same."""
     stack = _stack("warm")
     stack.append(True)
     try:

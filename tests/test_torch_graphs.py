@@ -415,6 +415,31 @@ def test_assign_respects_aliases():
         graphs.assign((torch.zeros(2),), (torch.zeros(3),))
 
 
+def test_warming_runs_a_while_body_the_loop_skips():
+    """A loop whose condition is false at entry (a solve that starts
+    converged, as the pressure of an x-invariant channel does) runs no
+    body eagerly; in warming() its body runs once, on a copy, as a
+    capture captures it (its first-use caches filled before the
+    capture), and the carry comes back as it was."""
+    ran = []
+
+    def body(c):
+        ran.append(1)
+        return (c[0] + 1, c[1] * 2)
+
+    carry = (torch.tensor(5), torch.tensor([1.0, 2.0]))
+    out = graphs.while_loop(lambda c: c[0] < 5, body, carry)
+    assert not ran and out[0] is carry[0]
+    with graphs.warming():
+        out = graphs.while_loop(lambda c: c[0] < 5, body, carry)
+    assert ran == [1] and out[0] is carry[0] and out[1] is carry[1]
+    assert int(carry[0]) == 5 and carry[1].tolist() == [1.0, 2.0]
+    ran.clear()
+    with graphs.warming():
+        out = graphs.while_loop(lambda c: c[0] < 7, body, carry)
+    assert ran == [1, 1] and int(out[0]) == 7      # no extra body
+
+
 def test_cond_and_while_loop_forms():
     """Functional in both forms, the predicate read on the host; in
     warming() the branch not taken runs on a copy; other host reads

@@ -1,5 +1,10 @@
-"""Shared helpers for the tests that hold sedifoam_tpu_torch against
-sedifoam_tpu (tests/test_torch_*.py)."""
+"""Shared helpers for the tests of sedifoam_tpu_torch
+(tests/test_torch_*.py): those that hold it against sedifoam_tpu, and
+those that run the port alone, on the CPU and on the card (`devices`,
+`by_tag`, `chain_kernel_ran`, `Stepper`; tests/test_torch_physics_*.py).
+Imports nothing of JAX."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -73,3 +78,102 @@ def assert_tree_close(ref, got, tol, skip=(), path=""):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
                                           err_msg=where)
     return worst
+
+
+def devices(slow=False):
+    """The `device` parameters of a test of the port alone: "cpu", which
+    always runs, and "cuda", marked `cuda` and skipped where no card is
+    present; with `slow`, both marked `slow` as well."""
+    extra = [pytest.mark.slow] if slow else []
+    cuda = [pytest.mark.cuda,
+            pytest.mark.skipif(not torch.cuda.is_available(),
+                               reason="needs a CUDA card")]
+    return [pytest.param("cpu", id="cpu", marks=extra),
+            pytest.param("cuda", id="cuda", marks=cuda + extra)]
+
+
+DEVICES = devices()
+
+
+def by_tag(state, *fields):
+    """The given (N, ...) fields of a port ParticleState on any device,
+    as host numpy arrays of its ACTIVE rows sorted by tag (the binned
+    backend may re-sort rows at a rebuild: identity is the tag, not the
+    row), so states of different capacity compare directly. One field
+    gives one array, several a list."""
+    tag = _np(state.tag)
+    rows = np.where(_np(state.active))[0]
+    order = rows[np.argsort(tag[rows], kind="stable")]
+    out = [_np(getattr(state, f))[order] for f in fields]
+    return out if len(out) > 1 else out[0]
+
+
+@contextlib.contextmanager
+def chain_kernel_ran(device, binned=True):
+    """Around a case that steps the binned contact chain (`binned`): on
+    a CUDA device, asserts that the kernel's launch count
+    (dem.fused.launches(), eager and inside replayed graphs) grew across
+    the case, so the kernel ran and no plain version stood in for it.
+    Nothing is checked on the CPU, where the plain version is the
+    chain."""
+    if not binned or torch.device(device).type != "cuda":
+        yield
+        return
+    from sedifoam_tpu_torch.dem import fused
+    before = fused.launches()
+    yield
+    assert fused.launches() > before, \
+        "the contact-chain kernel was never launched"
+
+
+class Stepper:
+    """state = fn(state), n times, for the long runs of a test. On the
+    CPU, and for fewer than `block` steps, an eager loop. On a CUDA
+    device whole blocks of `block` steps replay one captured graph of
+    them (graphs.StepGraph, captured at the first block: an eager
+    warm-up with every branch run, then the capture), and the remainder
+    runs eagerly: the steps are the same, one graph launch a block in
+    place of a Python loop of kernels. run returns a copy that outlives
+    the next replay."""
+
+    def __init__(self, fn, block):
+        self.fn, self.block, self.graph = fn, block, None
+
+    def _loop(self, state, n):
+        for _ in range(n):
+            state = self.fn(state)
+        return state
+
+    def run(self, state, n):
+        from sedifoam_tpu_torch import graphs
+        if graphs.flatten(state)[0].device.type != "cuda" or n < self.block:
+            return self._loop(state, n)
+        if self.graph is None:
+            self.graph = graphs.StepGraph(
+                lambda st: self._loop(st, self.block)).capture(state)
+        for _ in range(n // self.block):
+            state = self.graph.replay(state)
+        state = graphs.tree_map(torch.clone, state)
+        return self._loop(state, n % self.block)
+
+
+def dem_stepper(cfg, block=100):
+    """A Stepper of DEM substeps (dem.integrate.run_dem one substep at a
+    time). Each substep takes its step time as 0, which only a wiggled
+    wall reads: those are refused."""
+    from sedifoam_tpu_torch.dem.integrate import run_dem
+    if any(w.wiggle for w in cfg.walls):
+        raise ValueError("dem_stepper: a wiggled wall reads the step time")
+    return Stepper(lambda st: run_dem(st, cfg, 1), block)
+
+
+def fluid_stepper(grid, bcs, cfg, device, block=10):
+    """A Stepper of fluid_step(fs, grid, bcs, cfg), `block` steps a
+    captured graph on the card, with the pressure preconditioner built
+    once (the operator fluid_step builds itself when given none) as the
+    port's coupled step builds it."""
+    from sedifoam_tpu_torch import fastsolve
+    from sedifoam_tpu_torch.fluid.step import fluid_step
+    pp = fastsolve.pressure_preconditioner(grid, bcs.p, torch.float64, device)
+    return Stepper(lambda s: fluid_step(s, grid, bcs, cfg, pprecond=pp),
+                   block)
