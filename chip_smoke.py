@@ -224,10 +224,28 @@ which passes or exits nonzero:
    GraphedShardedStep on those ranks, held as (h) holds one rank's; on
    one card a line saying that no second card ran;
    each phase's seconds in the last line before the output;
+14e. refcases: the reference's own auto-testing and example cases
+   (xiaocase1, expMueller06/09, expWachem_PCM, BL24-TH1,
+   multiParticlesCollideDia/Rho) as stand-in case directories at the
+   real cases' particle counts (tests/torch_port_refcases.py: 2,160,
+   9,240, 9,240, 17,562, 9,341 in a table of 16,384, and 4; their
+   geometry and data/ curves chosen, so no gate on them judges physics)
+   laid out as the reference's case tree; `python -m
+   sedifoam_tpu_torch.validate.battery --quick --cases-dir` on them with
+   the quick lengths cut in depth (120, 100, 100, 100 and 25 steps, the
+   collisions 50): every case runs and is judged by run_all_cases.py's
+   gates, its keys, the gates a cut run evaluates and ms per step
+   printed; each binned case's kernel launches = 1 setup + (steps + the
+   capture's warm-up + 6 evolves of the timing split) x substeps, the
+   dense collisions none; at each new shape (2,160, 9,240, 17,562 and
+   16,384 rows, K = 16) the kernel against its plain version after
+   REFCASE_SETTLE steps (<= 1e-5 of scale, a second launch bit for bit)
+   and its device time and bound; then validate/report.py on the
+   battery's report (no plots on a host without matplotlib);
 15. output: nvidia-smi's name/power line, a JSON line with the kernel
    table (launches summed over the main path, graph (from each case's
    set-up on), runner, inject, case, clumps, extras, bench, the sharded
-   ranks and validate,
+   ranks, validate and refcases,
    with the N and K it ran at,
    launches inside replayed graphs counted on the device; device time,
    bound, host time and floor per shape; its device time inside a
@@ -317,6 +335,16 @@ LATTICE_CHANNEL_STEPS = 3
 LATTICE_TOL = {"float32": {"force": 1e-5, "traj": 1e-5, "omega": 1e-4},
                "float64": {"force": 1e-12, "traj": 1e-12, "omega": 1e-12}}
 LATTICE_CHANNEL_TOL = 1e-10
+# the refcases phase: the reference's own cases as stand-ins at their
+# particle counts (tests/torch_port_refcases.py), each validator quick
+# and cut in depth
+REFCASE_STEPS = 100       # the Mueller cases, expWachem_PCM
+REFCASE_XIAOCASE1_STEPS = 120   # 6 visits: a probe sample inside the ramp
+REFCASE_BL24_STEPS = 25   # of BL24-TH1's 500 quick steps
+REFCASE_COLLIDE_END = 0.05  # of the collisions' 0.2 s (50 of 200 steps)
+REFCASE_SETTLE = 10       # steps before the chain is held at a new shape
+REFCASE_NAMES = ("xiaocase1", "expMueller06", "expMueller09",
+                 "expWachem_PCM", "BL24-TH1", "multiParticlesCollide")
 GRAPH_STEPS = 10          # replays held against as many eager steps
 GRAPH_TOL = 1e-6          # replay vs eager, of scale, where not bit for bit
 GRAPH_PROFILE = 5         # replays in the profile of a graphed step
@@ -2696,7 +2724,7 @@ def phase_lattice(dev):
     return out
 
 
-SHARDED_STEPS = 3
+SHARDED_STEPS = 2          # cut from 3: the script keeps inside its time limit
 SHARDED_REBUILD_STEPS = 1  # of the bench bed rebuilt at every substep
 SHARDED_RANKS = 2
 SHARDED_TOL = 1e-5        # of each field's scale, where not bit for bit
@@ -3598,6 +3626,174 @@ def phase_validate(dev):
     return out
 
 
+def refcase_runners(counts):
+    """battery.case_runners wrapped so that each runner records, in
+    counts[name], the kernel's launches of its run (eager and inside
+    replayed graphs), by N, the captures and the seconds."""
+    from sedifoam_tpu_torch.dem import fused
+    from sedifoam_tpu_torch.validate import battery
+    make = battery.case_runners
+
+    def runners(*args, **kw):
+        def counted(name, fn):
+            def run():
+                fused.reset_launches()
+                caps = captures()
+                t0 = time.perf_counter()
+                res = fn()
+                counts[name] = {"launches": fused.launches(),
+                                "by_n": dict(fused.launch_sizes()),
+                                "in_graphs": fused.graph_launches(),
+                                "captures": captures() - caps,
+                                "seconds": time.perf_counter() - t0}
+                return res
+            return run
+        return {n: counted(n, f) for n, f in make(*args, **kw).items()}
+    return runners
+
+
+def phase_refcases(dev, floor):
+    """The reference's own auto-testing and example cases on the port:
+    stand-ins at the real cases' particle counts (xiaocase1 2,160,
+    expMueller06/09 9,240, expWachem_PCM 17,562, BL24-TH1 9,341 in a
+    table of 16,384, the collisions' 4) written as the reference's case
+    tree, `python -m sedifoam_tpu_torch.validate.battery --quick
+    --cases-dir` on them with the quick lengths cut in depth, each binned
+    case's kernel launches = 1 setup + (steps + captures + 6 evolves of
+    the timing split) x substeps, the dense collisions none; the contact
+    chain against its plain version and timed at each new shape after
+    REFCASE_SETTLE steps; then the report (validate/report.py). The
+    stand-ins' gates judge no physics: each case must run and be judged,
+    its verdict is printed."""
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_port_refcases as rc
+    from sedifoam_tpu_torch.io.case import load_case
+    from sedifoam_tpu_torch.runtime.runner import Simulation
+    from sedifoam_tpu_torch.solver import initialize
+    from sedifoam_tpu_torch.validate import (battery, bl24, report,
+                                             semi_implicit)
+    dt = 1e-4
+    root = tempfile.mkdtemp(prefix="refcases_")
+    t0 = time.perf_counter()
+    rc.write_tree(root, sizes=rc.FULL, collide_end=REFCASE_COLLIDE_END)
+    say(f"refcases: stand-ins written at the real counts in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = {}
+    saved = battery.case_runners, battery.QUICK_T
+    cut = (REFCASE_STEPS - 0.5) * dt
+    battery.case_runners = refcase_runners(counts)
+    battery.QUICK_T = {"xiaocase1": (REFCASE_XIAOCASE1_STEPS - 0.5) * dt,
+                       "mueller": cut, "mueller_avg": 0.0, "wachem": cut,
+                       "bl24": (REFCASE_BL24_STEPS - 0.5) * dt}
+    path = os.path.join(root, "torch_report.json")
+    t0 = time.perf_counter()
+    try:
+        battery.main(["--device", str(dev), "--quick", "--cases-dir", root,
+                      "--report", path, "--only", ",".join(REFCASE_NAMES)])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        battery.case_runners, battery.QUICK_T = saved
+    say(f"refcases: the battery ran in {time.perf_counter() - t0:.1f} s, "
+        f"exit code {code} (1: a stand-in's gate failed)")
+    if code not in (0, 1):
+        fail(f"refcases: the battery exited {code}")
+    with open(path) as f:
+        rep = json.load(f)
+    steps = {"xiaocase1": REFCASE_XIAOCASE1_STEPS,
+             "expMueller06": REFCASE_STEPS,
+             "expMueller09": REFCASE_STEPS, "expWachem_PCM": REFCASE_STEPS,
+             "BL24-TH1": REFCASE_BL24_STEPS,
+             "multiParticlesCollide": 2 * int(round(REFCASE_COLLIDE_END
+                                                    / 1e-3))}
+    out = {"cases": {}, "shapes": [], "launches": 0, "ran_at": [],
+           "max_abs_err": 0.0}
+    for name in REFCASE_NAMES:
+        entry = rep["cases"].get(name, {})
+        if "not_run" in entry or "error" in entry or name not in counts:
+            fail(f"refcases [{name}]: did not run: "
+                 f"{json.dumps(entry)[:2000]}")
+        if entry["passed"] != battery.judge(name, entry, True):
+            fail(f"refcases [{name}]: stored verdict is not the judge's")
+        c = counts[name]
+        ms = c["seconds"] / steps[name] * 1e3
+        gates = entry.get("gates") or {k: entry[k] for k in (
+            "ramp_max_rel_err", "plateau_rel_err", "dp_vs_bed_weight_rel_err",
+            "continuity_err", "alpha_min", "dp_vs_baseline_rel_err",
+            "seedmean_lineY3_uy_rms_err", "seedmean_lineY3_uy_corr",
+            "y_max_dev", "vy_max_dev") if k in entry}
+        say(f"refcases [{name}]: {'PASS' if entry['passed'] else 'FAIL'} "
+            f"(a stand-in: no physics judged) in {c['seconds']:.1f} s, "
+            f"{ms:.2f} ms per step of the run incl. its load and capture; "
+            f"keys {sorted(entry)}; gates a cut run evaluates "
+            f"{json.dumps(gates)}; launches {c['launches']} by N "
+            f"{c['by_n']} ({c['in_graphs']} inside replays, "
+            f"{c['captures']} captures)")
+        out["cases"][name] = {"passed": entry["passed"],
+                              "seconds": c["seconds"], "ms_per_step": ms,
+                              "launches": c["launches"]}
+    # the launches of the binned cases' runs, and the chain at their shapes
+    for name, capacity in (("xiaocase1", None), ("expMueller06", None),
+                           ("expMueller09", None), ("expWachem_PCM", None),
+                           ("BL24-TH1", bl24.CAPACITY)):
+        case = os.path.join(root, battery.REF_CASES[name][0][0])
+        cfg, fluid, particles, _ = load_case(
+            case, backend="binned", dtype=torch.float32, capacity=capacity,
+            device=dev)
+        if name in ("expWachem_PCM", "BL24-TH1"):     # as their validators
+            cfg = semi_implicit(cfg)
+        sub = cfg.cloud.sub_cycles * cfg.cloud.sub_steps
+        c = counts[name]
+        expected = 1 + (steps[name] + c["captures"] + 6) * sub
+        say(f"refcases [{name}]: contact_chain launches {c['launches']} (1 "
+            f"setup + ({steps[name]} steps + {c['captures']} capture "
+            f"warm-ups + 6 evolves of the timing split) x {sub} substeps = "
+            f"{expected})")
+        if c["launches"] != expected or c["in_graphs"] == 0:
+            fail(f"refcases [{name}]: kernel launched {c['launches']} times "
+                 f"({c['in_graphs']} inside replays), expected {expected}")
+        K = particles.nbr_idx.shape[0]
+        out["launches"] += c["launches"]
+        out["ran_at"] += [{"N": n, "K": K, "launches": v, "path": "refcases"}
+                          for n, v in sorted(c["by_n"].items())]
+        if name == "expMueller09":
+            continue                  # the shape of expMueller06's stand-in
+        counted = launch_snapshot()
+        sim = Simulation(cfg, initialize(fluid, particles, cfg),
+                         steps_per_host_visit=REFCASE_SETTLE, device=dev)
+        sim.run((REFCASE_SETTLE - 0.5) * dt)
+        p = tree_map(torch.clone, sim.state.particles)
+        launch_restore(counted)
+        del sim
+        label = f"{name} stand-in after {REFCASE_SETTLE} steps"
+        got = compare_chain(label, p, cfg.dem, True, 1e-5, timing=True,
+                            may_be_zero=("torque", "wall_shear"))
+        out["max_abs_err"] = max(out["max_abs_err"], got["max_abs_err"])
+        shape = measure_chain(f"refcases {name}", p, cfg.dem, floor)
+        shape.update(plain_ms=got["plain_ms"], wrapper_ms=got["ms"],
+                     launches=c["launches"])
+        out["shapes"].append(shape)
+    if counts["multiParticlesCollide"]["launches"] != 0:
+        fail("refcases [multiParticlesCollide]: the dense cases launched the "
+             "binned chain")
+    res = report.main(["--report", path, "--cases-dir", root,
+                       "--out", os.path.join(root, "torch_report.md"),
+                       "--plots", os.path.join(root, "torch_plots")])
+    with open(res["out"]) as f:
+        text = f.read()
+    rows = [ln for ln in text.splitlines() if ln.startswith("| ")
+            and not ln.startswith("| case")]
+    say(f"refcases: report {len(rows)} rows, plots drawn "
+        f"{res['plots_drawn']} ({len(res['plots'])})")
+    for ln in rows:
+        say(f"refcases report: {ln[:300]}")
+    if len(rows) != len(REFCASE_NAMES):
+        fail(f"refcases: the report has {len(rows)} rows")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -3652,6 +3848,8 @@ def main():
     mark("sharded")
     validate = phase_validate(dev)
     mark("validate")
+    refcases = phase_refcases(dev, k["floor_us"])
+    mark("refcases")
     say(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s (" + ", ".join(
             f"{n} {b - a:.1f}" for n, a, b in zip(names, marks, marks[1:]))
@@ -3671,14 +3869,17 @@ def main():
         ran_at += [{"N": n, "K": path["K"], "launches": c}
                    for n, c in sorted(path["by_n"].items())]
     launches += sum(path["launches"] for path in paths[1:])
-    k["shapes"] += bench["shapes"]
+    ran_at += refcases["ran_at"]
+    launches += refcases["launches"]
+    k["shapes"] += bench["shapes"] + refcases["shapes"]
     bench_rates, bench = bench["rates"], k["shapes"][0]
     say(json.dumps({"kernels": [{
         "name": "contact_chain", "route": "cuda",
         "source": "sedifoam_tpu_torch/csrc/contact_chain.cu",
         "replaces": "sedifoam_tpu/dem/fused.py:33",
         "launches": launches, "max_abs_err": max(
-            k["max_abs_err"], case["max_abs_err"], paths[3]["max_abs_err"]),
+            k["max_abs_err"], case["max_abs_err"], paths[3]["max_abs_err"],
+            refcases["max_abs_err"]),
         "ms": bench["device_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
         "library_ms": None, "wrapper_ms": k["ms"],
@@ -3690,6 +3891,7 @@ def main():
             "gloo", "nccl", "rebuilt", "channel", "ref_ms",
             "channel_ref_ms", "slab_ops_parting", "configs", "own_rows",
             "probe", "graphed")},
+        "refcases": refcases["cases"],
         "shapes": k["shapes"],
         "graphs": GRAPHS, "ran_at": ran_at}]}))
     say(json.dumps({"ok": True, "device": {

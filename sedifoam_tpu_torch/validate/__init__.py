@@ -1,17 +1,72 @@
 """Case-level validators of the port (the counterparts of
 ``scripts/validate_irregular.py``, ``validate_bedload.py``,
-``validate_suspended.py``, ``validate_dune.py``, ``validate_jetflow.py`` and
-``scripts/run_all_cases.py``).
+``validate_suspended.py``, ``validate_dune.py``, ``validate_jetflow.py``,
+``validate_xiaocase1.py``, ``validate_expMueller.py``,
+``validate_wachem.py``, ``validate_bl24.py``, the trace check of
+``tests/test_golden_collide.py``, ``scripts/run_all_cases.py`` and
+``scripts/generate_report.py``).
 
 Each module runs with ``python -m`` and has a ``main(argv)`` that prints
 one JSON line and returns the result dict, so tests and chip_smoke.py
-call it in-process. The case directories are written by
-``sedifoam_tpu_torch.cases`` (the reference's are not part of the
-repository). Every validator runs on the CUDA card unless ``--device``
+call it in-process. The transport, irregular and jetFlow case
+directories are written by ``sedifoam_tpu_torch.cases``; the reference's
+own auto-testing and example cases (xiaocase1, expMueller06/09,
+expWachem_PCM, BL24-TH1, multiParticlesCollide) are read from a
+directory of the reference's cases that the caller names (the battery's
+--cases-dir, a validator's --case, or ``$SEDIFOAM_CASES_DIR``). Every
+validator runs on the CUDA card unless ``--device``
 names another device.
 """
 
 import dataclasses
+import os
+import re
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+RESULTS = os.path.join(REPO, "results")
+# the reference's case tree (auto-testing/test-cases/<case>,
+# example-cases/<case>): $SEDIFOAM_CASES_DIR, else none (the reference's
+# cases are then not run unless --cases-dir or --case names them)
+CASES_DIR = os.environ.get("SEDIFOAM_CASES_DIR") or None
+TEST_CASES = os.path.join("auto-testing", "test-cases")
+EXAMPLE_CASES = "example-cases"
+# what io.case.load_case reads from every case directory
+LOADER_FILES = ("system/controlDict", "system/fvSolution",
+                "constant/polyMesh/blockMeshDict",
+                "constant/transportProperties",
+                "constant/environmentalProperties",
+                "constant/cloudProperties", "0/alpha", "0/p", "in.lammps")
+
+
+def ref_case(*rel):
+    """The path `rel` under CASES_DIR, or None where no tree is set."""
+    return os.path.join(CASES_DIR, *rel) if CASES_DIR else None
+
+
+def missing_files(case_dir, extra=()) -> list:
+    """The files of `case_dir` that a run needs and that are absent, as
+    paths relative to it: the loader's, the data file that in.lammps's
+    read_data names, and `extra`."""
+    need = list(LOADER_FILES) + list(extra)
+    lmp = os.path.join(case_dir, "in.lammps")
+    if os.path.isfile(lmp):
+        with open(lmp) as f:
+            m = re.search(r"^\s*read_data\s+(\S+)", f.read(), re.M)
+        if m:
+            need.append(m.group(1))
+    return [rel for rel in need
+            if not os.path.isfile(os.path.join(case_dir, rel))]
+
+
+def torch_out(path: str) -> str:
+    """`path` with its file name prefixed `torch_` (unless it is): the
+    port's validators never write over the reference's results/ files."""
+    if not path:
+        return path
+    head, name = os.path.split(path)
+    return path if name.startswith("torch_") else os.path.join(
+        head, "torch_" + name)
 
 
 def coarsened(cfg, factor: int):
