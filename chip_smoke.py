@@ -436,15 +436,12 @@ def launch_snapshot():
     graphs (copies). launch_restore puts them back, so launches made to
     compare or time a kernel do not count."""
     from sedifoam_tpu_torch.dem import fused
-    return (fused.LAUNCHES, fused.LAUNCH_SIZES.copy(),
-            {k: v.clone() for k, v in fused.GRAPH_LAUNCHES.items()})
+    return fused.launch_snapshot()
 
 
 def launch_restore(snap):
     from sedifoam_tpu_torch.dem import fused
-    fused.LAUNCHES, fused.LAUNCH_SIZES = snap[0], snap[1].copy()
-    for k, v in fused.GRAPH_LAUNCHES.items():
-        v.copy_(snap[2][k]) if k in snap[2] else v.zero_()
+    fused.launch_restore(snap)
 
 
 def captures():

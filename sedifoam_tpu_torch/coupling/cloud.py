@@ -36,7 +36,7 @@ from typing import Tuple
 import torch
 
 from sedifoam_tpu_torch import bc as _bc
-from sedifoam_tpu_torch import graphs
+from sedifoam_tpu_torch import graphs, telemetry
 from sedifoam_tpu_torch import ops
 from sedifoam_tpu_torch.config import CloudConfig, DEMConfig, FluidConfig
 from sedifoam_tpu_torch.coupling import drag as _drag
@@ -84,8 +84,11 @@ def evolve(fluid: FluidState, particles: ParticleState,
            smoother=None, shard=None
            ) -> Tuple[FluidState, ParticleState, torch.Tensor]:
     """One full evolve(). Returns (fluid', particles', UfSmoothed).
-    `smoother` is the prebuilt smoothing FastDiag (built when None)."""
+    `smoother` is the prebuilt smoothing FastDiag (built when None).
+    The phase clock (telemetry.mark) closes "coupling" before each run
+    of the DEM substeps and "dem" after it."""
     smooth = _smooth_fn(grid, ccfg, smoother)
+    dev = fluid.p.device
     gamma = fluid.alpha
 
     uf = fluid.Ub
@@ -154,8 +157,10 @@ def evolve(fluid: FluidState, particles: ParticleState,
         # reads it before the next particle_forces
         particles = particles._replace(fdrag=p_drag, dudt=p_dudt,
                                        vel_fluid_old=particles.vel)
+        telemetry.mark("coupling", dev)
         particles = _dem.run_dem(particles, dcfg, ccfg.sub_steps, t0=0.0,
                                  shard=shard)
+        telemetry.mark("dem", dev)
 
         if ccfg.delete_outside:
             particles = _delete_outside(particles, grid, dcfg, shard)

@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from sedifoam_tpu_torch import _build, graphs
+from sedifoam_tpu_torch import _build, graphs, telemetry
 from sedifoam_tpu_torch.config import (PAIR_HERTZ_HISTORY, PAIR_HOOKE,
                                        PAIR_HOOKE_HISTORY, WALL_ZCYLINDER,
                                        PairParams)
@@ -51,21 +51,25 @@ from sedifoam_tpu_torch.dem.walls import wall_forces
 
 # kernel launches in this process (incremented once per launch), in all
 # and by N, outside CUDA graphs; inside them, one int64 counter per
-# (device, N) on the device, made at the first eager launch
+# (device, N) on the device in the telemetry registry
+# (``fused.launches.<N>``), made at the first eager launch
 LAUNCHES = 0
 LAUNCH_SIZES = collections.Counter()
-GRAPH_LAUNCHES = {}
+_GRAPH = "fused.launches."
 # launches captured into graphs, by N (each runs at every replay that
 # reaches it)
 CAPTURED = collections.Counter()
 
 
+def _graph_counts() -> collections.Counter:
+    return collections.Counter({int(name[len(_GRAPH):]):
+                                telemetry.REGISTRY.value(name)
+                                for name in telemetry.REGISTRY.names(_GRAPH)})
+
+
 def launch_sizes() -> collections.Counter:
     """Launches by N, eager and inside replayed graphs (a host read)."""
-    out = collections.Counter(LAUNCH_SIZES)
-    for (_, n), c in GRAPH_LAUNCHES.items():
-        out[n] += int(c)
-    return +out
+    return +(LAUNCH_SIZES + _graph_counts())
 
 
 def launches() -> int:
@@ -75,7 +79,7 @@ def launches() -> int:
 
 def graph_launches() -> int:
     """Launches inside replayed graphs (a host read)."""
-    return sum(int(c) for c in GRAPH_LAUNCHES.values())
+    return sum(_graph_counts().values())
 
 
 def reset_launches() -> None:
@@ -84,23 +88,35 @@ def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
     LAUNCH_SIZES.clear()
-    for c in GRAPH_LAUNCHES.values():
-        c.zero_()
+    telemetry.REGISTRY.reset(_GRAPH)
+
+
+def launch_snapshot():
+    """The launch counts, eager and on the device (copies), for
+    launch_restore: launches made to compare or time the kernel then do
+    not count."""
+    return LAUNCHES, LAUNCH_SIZES.copy(), telemetry.snapshot(_GRAPH)
+
+
+def launch_restore(snap) -> None:
+    global LAUNCHES
+    LAUNCHES = snap[0]
+    LAUNCH_SIZES.clear()
+    LAUNCH_SIZES.update(snap[1])
+    telemetry.restore(snap[2], _GRAPH)
 
 
 def _count(n, device):
     global LAUNCHES
-    key = (device, n)
+    name = f"{_GRAPH}{n}"
     if graphs.capturing():
-        if key not in GRAPH_LAUNCHES:
+        if (name, device) not in telemetry.REGISTRY.tensors:
             raise RuntimeError(f"contact_chain: first launch at N={n} under "
                                "a capture: warm up the step first")
-        GRAPH_LAUNCHES[key].add_(1)
+        telemetry.count(name, device)
         CAPTURED[n] += 1
         return
-    if key not in GRAPH_LAUNCHES:
-        GRAPH_LAUNCHES[key] = torch.zeros((), dtype=torch.int64,
-                                          device=device)
+    telemetry.counter(name, device)
     LAUNCHES += 1
     LAUNCH_SIZES[n] += 1
 

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from sedifoam_tpu_torch import device_vector, graphs
+from sedifoam_tpu_torch import device_vector, graphs, telemetry
 from sedifoam_tpu_torch.config import DEMConfig
 from sedifoam_tpu_torch.dem.cohesion import (cohesion_forces,
                                              cohesion_forces_binned)
@@ -102,13 +102,17 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
     binned, its shear carried over) as above on every rank alike, and
     the own block cut out: a particle sorted into another rank's block
     changes ranks here. nbr_dropped, counted on the whole state, is the
-    same on every rank."""
+    same on every rank.
+
+    Each rebuild adds one to telemetry's ``rebuilds`` counter on the
+    device, inside the branch: it counts the rebuilds that ran."""
     if cfg.backend == "lattice":
         from sedifoam_tpu_torch.dem import lattice as _lat
 
         geom = _lat.make_geom(cfg)
 
         def do_rebuild_lat(st: ParticleState) -> ParticleState:
+            telemetry.count("rebuilds", st.pos.device)
             pos, active = (st.pos, st.active) if shard is None else \
                 (shard.comm.all_gather_rows(st.pos), shard.active)
             new_slot, _overflow = _lat.bin_slots(geom, pos, active)
@@ -139,6 +143,7 @@ def maybe_rebuild_neighbors(state: ParticleState, cfg: DEMConfig,
         if cfg.sort_on_rebuild else None
 
     def do_rebuild(st: ParticleState) -> ParticleState:
+        telemetry.count("rebuilds", st.pos.device)
         if sort_fn is not None:
             st = permute_particle_state(st, sort_fn(st.pos, st.active))
         idx, dropped = rebuild_fn(st.pos, st.active)

@@ -32,40 +32,30 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from sedifoam_tpu_torch import graphs
+from sedifoam_tpu_torch import graphs, telemetry
 
 _SMALL = 1e-300  # solverPerformance::small_ analogue (f64)
 
 class _Stats(Mapping):
     """[solves, iterations] per solver since the last reset_stats(),
-    kept as one int64 pair per solver and device on the device (written
-    in place, so a captured step adds to the same pair at every replay)
-    and summed on the host only when read."""
+    kept in the telemetry registry as one int64 pair per solver and
+    device on the device (``linsolve.<solver>``: written in place, so a
+    captured step adds to the same pair at every replay) and summed on
+    the host only when read."""
 
     NAMES = ("pcg", "pcg_multi", "bicgstab")
-
-    def __init__(self):
-        self.counters = {}
+    PREFIX = "linsolve."
+    FIELDS = ("solves", "iterations")
 
     def add(self, name, it):
-        c = self.counters.get((name, it.device))
-        if c is None:
-            if graphs.capturing():
-                raise RuntimeError("linsolve.STATS: the first solve on a "
-                                   "device must run before a capture")
-            c = torch.zeros(2, dtype=torch.int64, device=it.device)
-            self.counters[(name, it.device)] = c
+        c = telemetry.counter(self.PREFIX + name, it.device, self.FIELDS)
         c[0].add_(1)
         c[1].add_(it)
 
     def __getitem__(self, name):
         if name not in self.NAMES:
             raise KeyError(name)
-        out = [0, 0]
-        for (n, _), c in self.counters.items():
-            if n == name:
-                out = [a + int(b) for a, b in zip(out, c.tolist())]
-        return out
+        return telemetry.REGISTRY.value(self.PREFIX + name) or [0, 0]
 
     def __iter__(self):
         return iter(self.NAMES)
@@ -74,20 +64,15 @@ class _Stats(Mapping):
         return len(self.NAMES)
 
     def reset(self):
-        for c in self.counters.values():
-            c.zero_()
+        telemetry.REGISTRY.reset(self.PREFIX)
 
     def snapshot(self):
-        return {k: c.clone() for k, c in self.counters.items()}
+        return telemetry.snapshot(self.PREFIX)
 
     def restore(self, saved):
         """Put the counts of snapshot() back, in place (the device
         counters a captured step adds to stay the same tensors)."""
-        for k, c in self.counters.items():
-            if k in saved:
-                c.copy_(saved[k])
-            else:
-                c.zero_()
+        telemetry.restore(saved, self.PREFIX)
 
 
 STATS = _Stats()

@@ -73,7 +73,7 @@ import warnings
 import torch
 from torch import nn
 
-from sedifoam_tpu_torch import bridge, graphs, linsolve
+from sedifoam_tpu_torch import bridge, graphs, telemetry
 from sedifoam_tpu_torch.dem import fused
 from sedifoam_tpu_torch.parallel.comm import Comm, replay_launched
 from sedifoam_tpu_torch.parallel.launch import NCCL_ENV
@@ -186,11 +186,12 @@ class GraphedShardedStep:
     def capture(self, local: SimState):
         """Capture the step for local's capacity (freeing the last one)."""
         self.graph = None
-        # the warm-up step is thrown away: its solves do not count
-        saved = linsolve.STATS.snapshot()
+        # the warm-up step is thrown away: its solves, rebuilds and clock
+        # marks do not count
+        saved = telemetry.snapshot(telemetry.CAPTURE_RESTORED)
         before = collections.Counter(self.comm.captured)
         g = graphs.StepGraph(self.step).capture(local)
-        linsolve.STATS.restore(saved)
+        telemetry.restore(saved, telemetry.CAPTURE_RESTORED)
         g.capacity = local.particles.n_capacity
         self.capture_bytes = dict(collections.Counter(self.comm.captured)
                                   - before)

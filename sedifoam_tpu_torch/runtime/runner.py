@@ -12,7 +12,10 @@ and no host sync inside, between two visits. The host reads the device
 only at a visit: the simulated time (the loop test), the window's
 high-water mark when windowed (a grown window captures the step anew),
 one probe sample and one diagnostics dict when due. On the CPU the step
-runs eagerly.
+runs eagerly. With telemetry on, each visit and each of its parts is a
+span (telemetry.span: ``run.visit``; ``run.replay``, ``run.time_read``,
+``run.window``, ``run.probes``, ``run.on_sample``, ``run.diagnostics``,
+``run.write``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from sedifoam_tpu_torch import default_device
+from sedifoam_tpu_torch import default_device, telemetry
 from sedifoam_tpu_torch.runtime import checkpoint as _ckpt
 from sedifoam_tpu_torch.runtime import diagnostics as _diag
 from sedifoam_tpu_torch.runtime.probes import Probes
@@ -146,27 +149,36 @@ class Simulation:
         next_write = (t + write_interval) if write_interval else None
         visit = 0
         t0 = time.perf_counter()
+        span = telemetry.span
         while t < t_end - 1e-12:
-            for _ in range(self.steps_per_visit):
-                self.state = self.advance(self.state)
-            visit += 1
-            t = self.t                                 # one read per visit
-            if self.windowed:
-                self._apply_window()
-            if self.probes is not None and visit % probe_every == 0:
-                fs = self.state.fluid
-                self.probes.sample(t, p=fs.p, Ub=fs.Ub, alpha=fs.alpha,
-                                   Ua=fs.Ua)
-            if on_sample is not None:
-                on_sample(self)
-            if log_every and visit % log_every == 0:
-                d = _diag.to_host(self.diag_fn(self.state))
-                d["t"] = t
-                self.log.append(d)
-            if write_dir and next_write is not None and \
-                    t >= next_write - 1e-12:
-                self.write(write_dir)
-                next_write += write_interval
+            with span("run.visit"):
+                with span("run.replay"):
+                    for _ in range(self.steps_per_visit):
+                        self.state = self.advance(self.state)
+                visit += 1
+                with span("run.time_read"):
+                    t = self.t                         # one read per visit
+                if self.windowed:
+                    with span("run.window"):
+                        self._apply_window()
+                if self.probes is not None and visit % probe_every == 0:
+                    with span("run.probes"):
+                        fs = self.state.fluid
+                        self.probes.sample(t, p=fs.p, Ub=fs.Ub,
+                                           alpha=fs.alpha, Ua=fs.Ua)
+                if on_sample is not None:
+                    with span("run.on_sample"):
+                        on_sample(self)
+                if log_every and visit % log_every == 0:
+                    with span("run.diagnostics"):
+                        d = _diag.to_host(self.diag_fn(self.state))
+                        d["t"] = t
+                        self.log.append(d)
+                if write_dir and next_write is not None and \
+                        t >= next_write - 1e-12:
+                    with span("run.write"):
+                        self.write(write_dir)
+                    next_write += write_interval
         self._sync()
         self.wall_time += time.perf_counter() - t0
         return self.state

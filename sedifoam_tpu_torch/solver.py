@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from sedifoam_tpu_torch import fastsolve, graphs, linsolve
+from sedifoam_tpu_torch import fastsolve, graphs, telemetry
 from sedifoam_tpu_torch.config import CloudConfig, DEMConfig, FluidConfig
 from sedifoam_tpu_torch.coupling import cloud as _cloud
 from sedifoam_tpu_torch.coupling import transfer as _transfer
@@ -104,11 +104,15 @@ def coupled_step(state: SimState, cfg: SimConfig, smoother=None,
     x-slab where cfg.grid is the rank's grid.SlabGrid."""
     grid, bcs = cfg.grid, cfg.bcs
     fluid, particles = state.fluid, state.particles
+    dev = fluid.p.device
 
+    telemetry.mark("gap", dev)
     fluid = advance_time(fluid, cfg.fluid)
     fluid = fluid_step(fluid, grid, bcs, cfg.fluid, advance=False,
                        need_ddtu=need_ddtu(cfg), pprecond=pprecond)
+    telemetry.mark("fluid", dev)
 
+    # marks "coupling" before each run of the DEM substeps, "dem" after
     fluid, particles, uf_smoothed = _cloud.evolve(
         fluid, particles, state.uf_smoothed, grid, bcs,
         cfg.cloud, cfg.dem, cfg.fluid, smoother, shard)
@@ -116,6 +120,7 @@ def coupled_step(state: SimState, cfg: SimConfig, smoother=None,
     fluid = _cloud.lift_drag_coeffs(fluid, particles, uf_smoothed, grid,
                                     bcs, cfg.cloud, cfg.fluid, smoother,
                                     shard)
+    telemetry.mark("coupling", dev)
 
     return SimState(fluid, particles, uf_smoothed, state.uf_smoothed)
 
@@ -169,11 +174,12 @@ class GraphedStep:
         cap = state.particles.n_capacity
         if self.graph is None or self.graph.capacity != cap:
             self.graph = None                    # free the old one first
-            # the capture's warm-up step is thrown away: its solves do
-            # not count
-            saved = linsolve.STATS.snapshot()
+            # the capture's warm-up step is thrown away: its solves,
+            # rebuilds and clock marks do not count (its chain launches
+            # do, as launches of the kernel)
+            saved = telemetry.snapshot(telemetry.CAPTURE_RESTORED)
             g = graphs.StepGraph(self.step).capture(state)
-            linsolve.STATS.restore(saved)
+            telemetry.restore(saved, telemetry.CAPTURE_RESTORED)
             g.capacity = cap
             self.graph = g
             self.captures += 1
